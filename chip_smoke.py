@@ -3,23 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA decode kernel from tpu_ldpc_torch/csrc with nvcc, holds it
-bit for bit against its plain PyTorch version on the card, drives the
-port's main path (the public decode(), run_ber and the sweep CLI on the
-judged (1024, 512) code), times kernel and plain version with CUDA
-events, and prints:
+Builds the CUDA decode kernels from tpu_ldpc_torch/csrc with nvcc (one
+nvcc per source, in parallel), holds each against its plain PyTorch
+version on the card (min-sum bit for bit, exact sum-product frame by
+frame), drives the port's main paths on the judged (1024, 512) code
+through the public entry points -- slice 1: flooding min-sum decode(),
+run_ber and the sweep CLI; slice 2: layered min-sum, exact sum-product
+and two-phase decoding through decode(), run_ber and the CLI -- times
+kernels and plain versions with CUDA events, and prints:
 
   - one line per phase;
-  - {"kernels": [...]}: per kernel its launches on the main path, the
-    largest |kernel - plain| seen (0: bit-exact) and both times;
+  - the card's name and power limit (nvidia-smi);
+  - {"kernels": [...]}: per kernel its launches on the main paths, the
+    largest |kernel - plain| seen (0: bit-exact) and, for sum-product,
+    the share of frames that agree, its time, the plain version's time
+    and the least time the card could take (bound_ms);
   - last: {"ok": true, "device": {...}}.
 
 Any failure raises (traceback, non-zero exit) and the last line is never
 printed.  Without a CUDA device the script exits with 1 and prints no
 result.  It imports only tpu_ldpc_torch and asserts that JAX never
-loads.  The plain version is held bit for bit against the golden NumPy
-model by the CPU tests, and the kernel against golden by the card tests
-in tests/test_torch_cuda.py.
+loads.  The plain versions are held against the golden NumPy model by
+the CPU tests, and the kernels against golden by the card tests in
+tests/test_torch_cuda.py.
 """
 
 from __future__ import annotations
@@ -34,8 +40,49 @@ import time
 SEED = 20261016
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
-# frozen fixture row at 2.0 dB: tests/fixtures/judged_minsum50.csv
-FIXTURE_CI_2DB = (9.276914e-03, 1.146777e-02)
+BATCH = 4096
+# Wilson 95% intervals at 2.0 dB that run_ber's interval must overlap:
+# the frozen rows of tests/fixtures/judged_minsum50.csv (flooding
+# min-sum, 50 it) and artifacts/judged_layered25.csv (layered min-sum,
+# 25 it); for flooding exact sum-product (50 it) the JAX package's jnp
+# reference run on the CPU (tests/test_torch_sp_reference.py), because
+# the frozen artifacts/judged_sumproduct50.csv row, written by the Pallas
+# kernel on a TPU, lies above that reference's interval
+FROZEN_CI_2DB = {
+    "minsum flooding 50": (9.276914e-03, 1.146777e-02),
+    "minsum layered 25": (9.103468e-03, 1.127505e-02),
+    "sumproduct flooding 50": (2.999297e-03, 3.894854e-03),
+}
+TPU_SP_ROW_2DB = (4.074653e-03, 5.108183e-03)
+# exact sum-product, kernel against plain version on the same card: the
+# share of frames whose bits, ok and iters_used all agree.  Both agreed on
+# every frame at 2.0 dB on an H100; 0.999 leaves room for a rounding
+# split in 4 frames of 4096 and no more.  1.0 dB is where most frames
+# fail and run every iteration, so a wrong check-node update shows there.
+# Min-sum in place of sum-product must fall below the bar (a control).
+SP_MIN_AGREEMENT = 0.999
+SP_EBN0 = (2.0, 1.0)
+# the least time the card could take: device memory 3.35 TB/s, FP32
+# outside the tensor cores 67 TFLOP/s (H100 SXM datasheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# floating-point operations per edge and iteration that the algorithm
+# needs, counting tanh and log as one operation each: min-sum q = p - R,
+# |q|, the min compare, max(m - beta, 0), alpha *, sign *, the VN add;
+# sum-product q, |q|, phi (clip 2, * 0.5, tanh, log, negate) twice, the
+# phi sum, tot - phi_e, two sign products, the VN add
+OPS_PER_EDGE_ITER = {"minsum": 7, "sumproduct": 19}
+# (name, algo, schedule, main-path iterations, TPU kernel it replaces)
+KERNELS = (
+    ("minsum_flood", "minsum", "flooding", 50, "tpu_ldpc_torch/csrc/bp_flood.cu",
+     "tpu_ldpc/decode/pallas_bp.py:514"),
+    ("minsum_layered", "minsum", "layered", 25,
+     "tpu_ldpc_torch/csrc/bp_layered.cu", "tpu_ldpc/decode/pallas_bp.py:609"),
+    ("sumproduct_flood", "sumproduct", "flooding", 50,
+     "tpu_ldpc_torch/csrc/bp_flood.cu", "tpu_ldpc/decode/pallas_bp.py:306"),
+    ("sumproduct_layered", "sumproduct", "layered", 25,
+     "tpu_ldpc_torch/csrc/bp_layered.cu", "tpu_ldpc/decode/pallas_bp.py:306"),
+)
 
 
 def _noisy_llrs(code, batch, ebn0_db, seed):
@@ -93,6 +140,56 @@ def _cuda_time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _diff(got, want):
+    """(largest |kernel - plain| over bits, ok and iters_used, share of
+    frames whose bits, ok and iters_used all agree)."""
+    gb, gok, giu = got
+    wb, wok, wiu = want
+    err = max(int((gb.int() - wb.int()).abs().max()),
+              int((gok.int() - wok.int()).abs().max()),
+              int((giu - wiu).abs().max()))
+    same = (gb == wb).all(dim=1) & (gok == wok) & (giu == wiu)
+    return err, float(same.double().mean())
+
+
+def _bound_ms(code, batch, algo, iters_executed):
+    """The least time of one decode: device-memory bytes (LLRs in, bits,
+    ok and iters_used out, each once) over 3.35 TB/s, or the operations
+    the codewords' iterations need over 67 TFLOP/s, whichever is larger.
+    Returns (ms, 'bytes' or 'operations')."""
+    nbytes = batch * code.n * 4 + batch * code.n + batch + batch * 4
+    ops = (OPS_PER_EDGE_ITER[algo] * code.layout.E * code.Z
+           * float(iters_executed))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _run_ber_check(run_ber, code, cfg, label, seed):
+    """run_ber over 65,536 frames at 2.0 dB; its Wilson interval must
+    overlap the frozen row's."""
+    t0 = time.perf_counter()
+    res = run_ber(code, [2.0], cfg, batch=BATCH, target_frame_errors=10**9,
+                  max_frames=65536, seed=seed, device="cuda")[0]
+    wall = time.perf_counter() - t0
+    lo, hi = _wilson_interval(res.frame_errors, res.frames)
+    ref = FROZEN_CI_2DB[label]
+    print(f"[4 run_ber] judged {label} 2.0 dB frames={res.frames} "
+          f"frame_errors={res.frame_errors} FER={res.fer:.4e} "
+          f"CI95=[{lo:.4e}, {hi:.4e}] reference={ref} "
+          f"mean_iters={res.mean_iters:.3f} undetected={res.undetected} "
+          f"wall={wall:.2f} s")
+    if res.frames != 65536:
+        raise AssertionError(f"run_ber ran {res.frames} frames, not 65536")
+    if label.startswith("sumproduct"):
+        print(f"[4 run_ber] {label}: the TPU row of "
+              f"artifacts/judged_sumproduct50.csv is {TPU_SP_ROW_2DB}; "
+              f"overlap {lo <= TPU_SP_ROW_2DB[1] and TPU_SP_ROW_2DB[0] <= hi}")
+    if not (lo <= ref[1] and ref[0] <= hi):
+        raise AssertionError(
+            f"{label}: FER CI [{lo:.4e}, {hi:.4e}] misses {ref}")
+
+
 def main() -> int:
     import torch
 
@@ -105,9 +202,13 @@ def main() -> int:
     from tpu_ldpc_torch import LdpcCode, _build
     from tpu_ldpc_torch.cli import sim as cli_sim
     from tpu_ldpc_torch.decode import decode
-    from tpu_ldpc_torch.decode.cuda_bp import minsum_flood
+    from tpu_ldpc_torch.decode.cuda_bp import WRAPPERS
     from tpu_ldpc_torch.decode.reference import build_decoder
+    from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
     from tpu_ldpc_torch.sim.mc import DecodeCfg, build_mc_step, run_ber
+
+    wrappers = {name: WRAPPERS[(algo, sched)]
+                for name, algo, sched, *_ in KERNELS}
 
     # ---- 1. device --------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -126,136 +227,271 @@ def main() -> int:
         raise RuntimeError(f"kernels are built for sm_90a, card is sm_{cap}")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # ---- 2. build ---------------------------------------------------------
+    # ---- 2. build (one nvcc per source, in parallel) ----------------------
     t0 = time.perf_counter()
-    _build.load_library()
-    print(f"[2 build] {_build.library_path()} in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[2 build] ptxas: {line.strip()}")
+    _build.load_all()
+    print(f"[2 build] {sorted(_build.sources())} in "
+          f"{time.perf_counter() - t0:.2f} s (parallel nvcc "
+          f"{_build.build_seconds:.2f} s)")
+    for src, log in sorted(_build.build_log.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[2 build] {src} ptxas: {line.strip()}")
 
-    # ---- 3. kernel vs plain on the card ------------------------------------
+    # ---- 3. kernels vs plain versions on the card --------------------------
     judged = LdpcCode.judged()
-    cases = [  # (code, Eb/N0 in its waterfall, batches)
+    min_sum_cases = [  # (code, Eb/N0 in its waterfall, batches)
         (judged, 2.0, (4096, 4097)),
         (LdpcCode.from_family("wifi", "2/3", 27), 2.0, (4096,)),   # odd Z
         (LdpcCode.from_family("wimax", "5/6", 96), 3.0, (4096,)),  # row deg 19
     ]
-    max_abs_err = 0
-    for ci, (code, ebn0, batches) in enumerate(cases):
-        base = _noisy_llrs(code, max(batches), ebn0, SEED + ci)
-        inputs = [(f"{ebn0} dB b={b}", base[:b]) for b in batches]
-        inputs.append(("+-0.0/1e4 b=1024", _special_llrs(base[:1024], SEED)))
-        for label, llr_np in inputs:
-            llr = torch.from_numpy(np.ascontiguousarray(llr_np)).to(dev)
+    max_abs_err = {kname: 0 for kname, *_ in KERNELS}
+    agreement = {kname: 1.0 for kname, *_ in KERNELS}
+    for kname, algo, sched, iters, *_ in KERNELS[:2]:  # min-sum: bit-exact
+        for ci, (code, ebn0, batches) in enumerate(min_sum_cases):
+            base = _noisy_llrs(code, max(batches), ebn0, SEED + ci)
+            inputs = [(f"{ebn0} dB b={b}", base[:b]) for b in batches]
+            inputs.append(("+-0.0/1e4 b=1024",
+                           _special_llrs(base[:1024], SEED)))
+            for label, llr_np in inputs:
+                llr = torch.from_numpy(np.ascontiguousarray(llr_np)).to(dev)
+                for et in (True, False):
+                    got = wrappers[kname](code, llr, iters, 0.75, 0.0, et)
+                    want = build_decoder(code, algo, iters, 0.75, 0.0, sched,
+                                         et)(llr)
+                    torch.cuda.synchronize()
+                    err, _ = _diff(got, want)
+                    max_abs_err[kname] = max(max_abs_err[kname], err)
+                    if err:
+                        raise AssertionError(
+                            f"{kname} {code.name} {label} et={et}: kernel != "
+                            f"plain (max |diff| {err})")
+                    print(f"[3 kernel==plain] {kname} {code.name} {label} "
+                          f"et={et}: bit-exact, "
+                          f"ok={float(got[1].float().mean()):.4f} "
+                          f"mean_iters={float(got[2].double().mean()):.3f}")
+    for si, ebn0 in enumerate(SP_EBN0):
+        sp_llr = torch.from_numpy(
+            _noisy_llrs(judged, BATCH, ebn0, SEED + 5 + si)).to(dev)
+        for kname, algo, sched, iters, *_ in KERNELS[2:]:  # sum-product
             for et in (True, False):
-                kb, kok, kiu = minsum_flood(code, llr, 50, 0.75, 0.0, et)
-                plain = build_decoder(code, "minsum", 50, 0.75, 0.0,
-                                      "flooding", et)
-                pb, pok, piu = plain(llr)
-                torch.cuda.synchronize()
-                err = max(
-                    int((kb.int() - pb.int()).abs().max()),
-                    int((kok.int() - pok.int()).abs().max()),
-                    int((kiu - piu).abs().max()),
-                )
-                max_abs_err = max(max_abs_err, err)
-                if err:
-                    raise AssertionError(
-                        f"{code.name} {label} et={et}: kernel != plain "
-                        f"(max |diff| {err})")
-                print(f"[3 kernel==plain] {code.name} {label} "
-                      f"et={et}: bit-exact, ok={float(kok.float().mean()):.4f} "
-                      f"mean_iters={float(kiu.double().mean()):.3f}")
+                got = wrappers[kname](judged, sp_llr, iters, early_stop=et)
+                want = build_decoder(judged, algo, iters, schedule=sched,
+                                     early_stop=et)(sp_llr)
+                err, share = _diff(got, want)
+                max_abs_err[kname] = max(max_abs_err[kname], err)
+                agreement[kname] = min(agreement[kname], share)
+                ms = WRAPPERS[("minsum", sched)](judged, sp_llr, iters,
+                                                 early_stop=et)
+                _, ms_share = _diff(ms, want)
+                print(f"[3 kernel~plain] {kname} judged {ebn0} dB b={BATCH} "
+                      f"et={et}: frame agreement {share:.6f} (>= "
+                      f"{SP_MIN_AGREEMENT}), max |diff| {err}, "
+                      f"ok={float(got[1].float().mean()):.4f}; control: "
+                      f"the min-sum kernel agrees on {ms_share:.6f}")
+                if share < SP_MIN_AGREEMENT:
+                    raise AssertionError(f"{kname} {ebn0} dB et={et}: frame "
+                                         f"agreement {share} < "
+                                         f"{SP_MIN_AGREEMENT}")
+                if ms_share >= SP_MIN_AGREEMENT:
+                    raise AssertionError(f"{kname} {ebn0} dB et={et}: the "
+                                         f"check passes min-sum "
+                                         f"({ms_share})")
 
-    # ---- 4. main path -----------------------------------------------------
+    # ---- 4. main paths (counts set to 0 before each, read after) ----------
     os.makedirs(OUT_DIR, exist_ok=True)
-    llr_np = _noisy_llrs(judged, 4096, 2.0, SEED + 10)
-    llr = torch.from_numpy(llr_np).to(dev)
-    minsum_flood.launches = 0
-    bits, ok, iters_used = decode(judged, llr)
-    torch.cuda.synchronize()
-    if minsum_flood.launches < 1:
-        raise AssertionError("decode() did not launch the kernel")
-    if not (bits.shape == (4096, judged.n) and bits.dtype == torch.uint8
-            and ok.shape == (4096,) and iters_used.dtype == torch.int32):
-        raise AssertionError("decode() output shapes / dtypes")
-    pb, pok, piu = decode(judged, llr[:256].cpu())  # the plain version
-    if not (torch.equal(bits[:256].cpu(), pb)
-            and torch.equal(ok[:256].cpu(), pok)
-            and torch.equal(iters_used[:256].cpu(), piu)):
-        raise AssertionError("decode() on the card != decode() on the CPU "
-                             "(256 rows)")
-    print(f"[4 decode] judged b=4096 ok={float(ok.float().mean()):.4f} "
-          f"launches={minsum_flood.launches}")
+    llr = torch.from_numpy(_noisy_llrs(judged, BATCH, 2.0, SEED + 10)).to(dev)
+    launches = {kname: 0 for kname, *_ in KERNELS}
 
-    t0 = time.perf_counter()
-    res = run_ber(judged, [2.0], DecodeCfg(), batch=4096,
-                  target_frame_errors=10**9, max_frames=65536, device="cuda")[0]
-    wall = time.perf_counter() - t0
-    lo, hi = _wilson_interval(res.frame_errors, res.frames)
-    print(f"[4 run_ber] judged 2.0 dB frames={res.frames} "
-          f"frame_errors={res.frame_errors} FER={res.fer:.4e} "
-          f"CI95=[{lo:.4e}, {hi:.4e}] mean_iters={res.mean_iters:.3f} "
-          f"undetected={res.undetected} wall={wall:.2f} s")
-    if res.frames != 65536:
-        raise AssertionError(f"run_ber ran {res.frames} frames, not 65536")
-    if not (lo <= FIXTURE_CI_2DB[1] and FIXTURE_CI_2DB[0] <= hi):
-        raise AssertionError(
-            f"FER CI [{lo:.4e}, {hi:.4e}] misses the fixture's {FIXTURE_CI_2DB}")
+    def check_decode_outputs(out, what):
+        bits, ok, iters_used = out
+        if not (bits.shape == (BATCH, judged.n) and bits.dtype == torch.uint8
+                and ok.shape == (BATCH,) and ok.dtype == torch.bool
+                and iters_used.dtype == torch.int32):
+            raise AssertionError(f"{what}: output shapes / dtypes")
 
-    step1 = build_mc_step(judged, DecodeCfg(), 4096, 1, device="cuda")
-    step4 = build_mc_step(judged, DecodeCfg(), 4096, 4, device="cuda")
-    c1 = sum(np.asarray(step1(0, 0, 2.0, t).tolist()) for t in range(4))
-    c4 = np.asarray(step4(0, 0, 2.0, 0).tolist())
-    if not np.array_equal(c1, c4):
-        raise AssertionError(f"steps_per_call 1 vs 4: {c1} != {c4}")
-    print(f"[4 regroup] steps_per_call 1 == 4 over 4 batches: {c4.tolist()}")
+    def slice1_path():
+        """Flooding min-sum: decode(), run_ber, regrouping, the CLI."""
+        out = decode(judged, llr)
+        torch.cuda.synchronize()
+        check_decode_outputs(out, "decode()")
+        pb, pok, piu = decode(judged, llr[:256].cpu())  # the plain version
+        if not (torch.equal(out[0][:256].cpu(), pb)
+                and torch.equal(out[1][:256].cpu(), pok)
+                and torch.equal(out[2][:256].cpu(), piu)):
+            raise AssertionError("decode() on the card != decode() on the "
+                                 "CPU (256 rows)")
+        print(f"[4 decode] judged flooding min-sum b={BATCH} "
+              f"ok={float(out[1].float().mean()):.4f}")
+        _run_ber_check(run_ber, judged, DecodeCfg(), "minsum flooding 50", 0)
+        step1 = build_mc_step(judged, DecodeCfg(), BATCH, 1, device="cuda")
+        step4 = build_mc_step(judged, DecodeCfg(), BATCH, 4, device="cuda")
+        c1 = sum(np.asarray(step1(0, 0, 2.0, t).tolist()) for t in range(4))
+        c4 = np.asarray(step4(0, 0, 2.0, 0).tolist())
+        if not np.array_equal(c1, c4):
+            raise AssertionError(f"steps_per_call 1 vs 4: {c1} != {c4}")
+        print(f"[4 regroup] steps_per_call 1 == 4 over 4 batches: "
+              f"{c4.tolist()}")
+        csv = os.path.join(OUT_DIR, "judged_2db.csv")
+        cli_sim.main(["--family", "judged", "--ebn0", "2.0", "--device",
+                      "cuda", "--batch", "2048", "--max-frames", "16384",
+                      "--csv", csv])
+        with open(csv) as f:
+            row = f.read().strip().splitlines()[-1].split(",")
+        if int(row[1]) < 16384:
+            raise AssertionError(f"CLI CSV row {row}")
+        print(f"[4 cli] wrote {csv}: frames={row[1]} FER={row[7]}")
 
-    csv = os.path.join(OUT_DIR, "judged_2db.csv")
-    cli_sim.main(["--family", "judged", "--ebn0", "2.0", "--device", "cuda",
-                  "--batch", "2048", "--max-frames", "16384", "--csv", csv])
-    with open(csv) as f:
-        row = f.read().strip().splitlines()[-1].split(",")
-    if int(row[1]) < 16384:
-        raise AssertionError(f"CLI CSV row {row}")
-    print(f"[4 cli] wrote {csv}: frames={row[1]} FER={row[7]}")
-    main_path_launches = minsum_flood.launches
-    if main_path_launches < 1:
-        raise AssertionError("the main path launched the kernel no time")
-    print(f"[4 main path] minsum_flood launches={main_path_launches}")
+    twophase = {}
+
+    def slice2_path():
+        """Layered min-sum, exact sum-product and two-phase decoding:
+        decode(), run_ber and the CLI."""
+        for kw in (dict(schedule="layered", iters=25),
+                   dict(algo="sumproduct", schedule="layered", iters=25)):
+            out = decode(judged, llr, **kw)
+            torch.cuda.synchronize()
+            check_decode_outputs(out, f"decode({kw})")
+            plain = decode(judged, llr[:256].cpu(), **kw)
+            err, share = _diff([x[:256].cpu() for x in out], plain)
+            if kw.get("algo") == "sumproduct":
+                # the CPU rounds tanh / log otherwise: the golden contract
+                # of the CPU tests; the full batch against the plain
+                # version on the card is held to SP_MIN_AGREEMENT
+                card_plain = build_decoder(judged, "sumproduct", 25,
+                                           schedule="layered")(llr)
+                _, card_share = _diff(out, card_plain)
+                print(f"[4 decode] judged {kw} b={BATCH}: kernel vs plain "
+                      f"on the card: agreement {card_share:.6f}")
+                if share < 0.97 or card_share < SP_MIN_AGREEMENT:
+                    raise AssertionError(
+                        f"decode({kw}): frame agreement {share} with the "
+                        f"CPU, {card_share} with the card's plain version")
+            elif err:
+                raise AssertionError(f"decode({kw}) on the card != on the "
+                                     "CPU (256 rows)")
+            print(f"[4 decode] judged {kw} b={BATCH} "
+                  f"ok={float(out[1].float().mean()):.4f} "
+                  f"mean_iters={float(out[2].double().mean()):.3f} "
+                  f"card vs CPU (256 rows): agreement {share:.4f}")
+        single = decode(judged, llr, schedule="layered", iters=25)
+        fn = build_twophase_decoder(judged, 25, 9, 768, report_fallback=True,
+                                    schedule="layered")
+        *got, n_unconv = fn(llr)
+        err, _ = _diff(got, single)
+        if err:
+            raise AssertionError(f"two-phase != single-pass ET (max |diff| "
+                                 f"{err})")
+        out = decode(judged, llr, schedule="layered", iters=25,
+                     impl="twophase")  # knobs from the table: K=9, 768
+        if _diff(out, single)[0]:
+            raise AssertionError("decode(impl='twophase') != single-pass ET")
+        twophase["n_unconv"] = n_unconv
+        print(f"[4 twophase] judged layered 25 it K=9 budget=768 b={BATCH} "
+              f"2.0 dB: bit-identical to single-pass ET, n_unconv={n_unconv}")
+        _run_ber_check(run_ber, judged, DecodeCfg(schedule="layered",
+                                                  iters=25),
+                       "minsum layered 25", 1)
+        _run_ber_check(run_ber, judged, DecodeCfg(algo="sumproduct"),
+                       "sumproduct flooding 50", 2)
+        csv = os.path.join(OUT_DIR, "judged_layered_twophase_2db.csv")
+        cli_sim.main(["--family", "judged", "--ebn0", "2.0", "--device",
+                      "cuda", "--schedule", "layered", "--iters", "25",
+                      "--impl", "twophase", "--batch", "4096",
+                      "--max-frames", "16384", "--csv", csv])
+        with open(csv) as f:
+            row = f.read().strip().splitlines()[-1].split(",")
+        if int(row[1]) < 16384:
+            raise AssertionError(f"CLI CSV row {row}")
+        print(f"[4 cli] layered twophase: wrote {csv}: frames={row[1]} "
+              f"FER={row[7]}")
+
+    for label, path, own in (("slice 1", slice1_path, KERNELS[:1]),
+                             ("slice 2", slice2_path, KERNELS[1:])):
+        for w in wrappers.values():
+            w.launches = 0
+        path()
+        torch.cuda.synchronize()
+        counts = {kname: w.launches for kname, w in wrappers.items()}
+        print(f"[4 main path] {label}: launches {counts}")
+        for kname, *_ in own:
+            if counts[kname] < 1:
+                raise AssertionError(f"{label} launched {kname} no time")
+        for kname in counts:
+            launches[kname] += counts[kname]
 
     # ---- 5. times (CUDA events, after warm-up) ----------------------------
-    plain_off = build_decoder(judged, "minsum", 50, 0.75, 0.0, "flooding",
-                              False)
+    info_bits = BATCH * judged.k
+    results = []
+    for kname, algo, sched, iters, source, replaces in KERNELS:
+        wrapper = wrappers[kname]
+        plain_off = build_decoder(judged, algo, iters, 0.75, 0.0, sched,
+                                  False)
 
-    def kernel_off():
-        minsum_flood(judged, llr, 50, 0.75, 0.0, early_stop=False)
+        def kernel_off():
+            wrapper(judged, llr, iters, 0.75, 0.0, early_stop=False)
 
-    def plain():
-        plain_off(llr)
+        def kernel_on():
+            return wrapper(judged, llr, iters, 0.75, 0.0, early_stop=True)
 
-    def kernel_on():
-        minsum_flood(judged, llr, 50, 0.75, 0.0, early_stop=True)
+        def plain():
+            plain_off(llr)
 
-    for fn in (kernel_off, plain, kernel_on):
-        fn()
+        for fn in (kernel_off, plain, kernel_on):
+            fn()
+        torch.cuda.synchronize()
+        # plain, kernel, kernel, plain: both see the same card state
+        p1 = _cuda_time_ms(plain, 2)
+        k1 = _cuda_time_ms(kernel_off, 20)
+        k2 = _cuda_time_ms(kernel_off, 20)
+        p2 = _cuda_time_ms(plain, 2)
+        k_on = _cuda_time_ms(kernel_on, 20)
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        _, ok_on, iu_on = kernel_on()
+        iters_on = float(iu_on.double().sum())
+        bound_off, by_off = _bound_ms(judged, BATCH, algo, BATCH * iters)
+        bound_on, by_on = _bound_ms(judged, BATCH, algo, iters_on)
+        print(f"[5 time] {kname} judged b={BATCH} {iters} it ET off: kernel "
+              f"{k_ms:.4f} ms/batch ({k1:.4f}, {k2:.4f}) = "
+              f"{k_ms / iters:.5f} ms/iteration = "
+              f"{info_bits / k_ms * 1e3:.4e} info bit/s; plain {p_ms:.4f} "
+              f"ms/batch ({p1:.4f}, {p2:.4f}); bound {bound_off:.5f} ms "
+              f"({by_off})")
+        print(f"[5 time] {kname} judged b={BATCH} 2.0 dB ET on (mean iters "
+              f"{iters_on / BATCH:.3f}): kernel {k_on:.4f} ms/batch = "
+              f"{info_bits / k_on * 1e3:.4e} info bit/s; bound "
+              f"{bound_on:.5f} ms ({by_on})")
+        entry = {
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[kname],
+            "max_abs_err": max_abs_err[kname], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound_off, "bound_by": by_off,
+            "library_ms": None,
+        }
+        if algo == "sumproduct":
+            entry["frame_agreement"] = agreement[kname]
+        results.append(entry)
+
+    layered = wrappers["minsum_layered"]
+    fn = build_twophase_decoder(judged, 25, 9, 768, schedule="layered")
+
+    def single_pass():
+        layered(judged, llr, 25, 0.75, 0.0, early_stop=True)
+
+    def two_phase():
+        fn(llr)
+
+    for f in (single_pass, two_phase):
+        f()
     torch.cuda.synchronize()
-    # plain, kernel, kernel, plain: both see the same card state
-    p1 = _cuda_time_ms(plain, 20)
-    k1 = _cuda_time_ms(kernel_off, 20)
-    k2 = _cuda_time_ms(kernel_off, 20)
-    p2 = _cuda_time_ms(plain, 20)
-    k_on = _cuda_time_ms(kernel_on, 20)
-    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    info_bits = 4096 * judged.k
-    print(f"[5 time] judged b=4096 50 it ET off: kernel {k_ms:.4f} ms/batch "
-          f"({k1:.4f}, {k2:.4f}) = {info_bits / k_ms * 1e3:.4e} info bit/s; "
-          f"plain {p_ms:.4f} ms/batch ({p1:.4f}, {p2:.4f}) = "
-          f"{info_bits / p_ms * 1e3:.4e} info bit/s")
-    print(f"[5 time] judged b=4096 2.0 dB ET on: kernel {k_on:.4f} ms/batch "
-          f"= {info_bits / k_on * 1e3:.4e} info bit/s")
+    s1, t1 = _cuda_time_ms(single_pass, 20), _cuda_time_ms(two_phase, 20)
+    t2, s2 = _cuda_time_ms(two_phase, 20), _cuda_time_ms(single_pass, 20)
+    print(f"[5 time] judged layered 25 it 2.0 dB b={BATCH}: single-pass ET "
+          f"{(s1 + s2) / 2:.4f} ms ({s1:.4f}, {s2:.4f}); two-phase K=9 "
+          f"budget=768 {(t1 + t2) / 2:.4f} ms ({t1:.4f}, {t2:.4f}), "
+          f"n_unconv={twophase['n_unconv']}")
+
+    step1 = build_mc_step(judged, DecodeCfg(), BATCH, 1, device="cuda")
     step1(0, 0, 2.0, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -263,23 +499,14 @@ def main() -> int:
         step1(0, 0, 2.0, t)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / 10 * 1e3
-    print(f"[5 time] MC step judged b=4096 2.0 dB (draw, encode, channel, "
+    print(f"[5 time] MC step judged b={BATCH} 2.0 dB (draw, encode, channel, "
           f"decode ET on, counters): {step_ms:.4f} ms host clock "
           f"= {info_bits / step_ms * 1e3:.4e} info bit/s")
 
-    if "jax" in sys.modules:
-        raise AssertionError("JAX was imported")
-    print(json.dumps({"kernels": [{
-        "name": "minsum_flood",
-        "route": "cuda",
-        "source": "tpu_ldpc_torch/csrc/minsum_flood.cu",
-        "replaces": "tpu_ldpc/decode/pallas_bp.py:514",
-        "launches": main_path_launches,
-        "max_abs_err": max_abs_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    if "jax" in sys.modules or "tpu_ldpc" in sys.modules:
+        raise AssertionError("JAX or the JAX package was imported")
     print(smi)
+    print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,8 +1,11 @@
-"""The CUDA decode kernel on the card: bit-exact against the plain PyTorch
-version and the golden float32 model.
+"""The CUDA decode kernels on the card against the plain PyTorch version
+and the golden model: K1 (flooding min-sum) and K2 (layered min-sum)
+bit-exact with golden float32, K3 (exact sum-product, both schedules)
+frame by frame, and two-phase decoding bit-identical to single-pass ET.
 
-Marked `cuda`; each test skips without a CUDA device.  The file imports no
-JAX, so on a machine with the card it runs without the JAX conftest:
+Marked `cuda`; each test skips without a CUDA device.  The file imports
+no JAX (only the JAX package's NumPy golden model and code registry), so
+on a machine with the card it runs without the JAX conftest:
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
         tests/test_torch_cuda.py -q
@@ -12,23 +15,36 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_ldpc.codes import LdpcCode
+from tpu_ldpc.codes import LdpcCode as JaxLdpcCode
 from tpu_ldpc.golden import decode as golden_decode
 from tpu_ldpc.golden import encode as golden_encode
+from tpu_ldpc_torch import LdpcCode
 from tpu_ldpc_torch.decode import decode
-from tpu_ldpc_torch.decode.cuda_bp import minsum_flood
+from tpu_ldpc_torch.decode.cuda_bp import (
+    WRAPPERS, minsum_flood, minsum_layered)
 from tpu_ldpc_torch.decode.reference import build_decoder
+from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
 
 pytestmark = pytest.mark.cuda
+
+CODES = [("judged", "1/2", 64, 2.0), ("wifi", "2/3", 27, 2.0),
+         ("wimax", "5/6", 96, 3.0)]
 
 
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device (torch.cuda.is_available() is False): "
-                    "the nvcc-built sm_90a kernel needs an NVIDIA H100 and "
+                    "the nvcc-built sm_90a kernels need an NVIDIA H100 and "
                     "the CUDA toolkit")
     return torch.device("cuda")
+
+
+def codes(family, rate, Z):
+    """(JAX package's code, its port twin built through from_base_graph)."""
+    ref = (JaxLdpcCode.judged() if family == "judged"
+           else JaxLdpcCode.from_family(family, rate, Z))
+    return ref, LdpcCode.from_base_graph(np.asarray(ref.B), ref.Z, ref.name)
 
 
 def noisy_llrs(code, batch, ebn0_db, seed):
@@ -40,24 +56,42 @@ def noisy_llrs(code, batch, ebn0_db, seed):
     return (2.0 / sigma2 * y).astype(np.float32)
 
 
+def special_llrs(code, ebn0_db):
+    llr = noisy_llrs(code, 257, ebn0_db, seed=21)
+    llr[1, ::3] = -0.0
+    llr[2, ::5] = 1e4
+    return llr
+
+
+def numpy_of(out):
+    return [x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+            for x in out]
+
+
 def assert_same(got, want):
-    for name, g, w in zip(("bits", "ok", "iters_used"), got, want):
-        g = g.cpu().numpy() if isinstance(g, torch.Tensor) else g
-        w = w.cpu().numpy() if isinstance(w, torch.Tensor) else w
+    for name, g, w in zip(("bits", "ok", "iters_used"), numpy_of(got),
+                          numpy_of(want)):
         np.testing.assert_array_equal(g, w, err_msg=name)
 
 
+def agreement(got, want):
+    """(share of frames with equal bits, share with equal ok)."""
+    (gb, gok, _), (wb, wok, _) = numpy_of(got), numpy_of(want)
+    return (gb == wb).all(axis=1).mean(), (gok == wok).mean()
+
+
+def frame_agreement(got, want):
+    """Share of frames whose bits, ok and iters_used all agree."""
+    (gb, gok, giu), (wb, wok, wiu) = numpy_of(got), numpy_of(want)
+    return ((gb == wb).all(axis=1) & (gok == wok) & (giu == wiu)).mean()
+
+
 @pytest.mark.parametrize("early_stop", [True, False])
-@pytest.mark.parametrize("family,rate,Z,ebn0", [
-    ("judged", "1/2", 64, 2.0), ("wifi", "2/3", 27, 2.0),
-    ("wimax", "5/6", 96, 3.0)])
+@pytest.mark.parametrize("family,rate,Z,ebn0", CODES)
 def test_kernel_bitexact_vs_plain_and_golden(cuda, family, rate, Z, ebn0,
                                              early_stop):
-    code = (LdpcCode.judged() if family == "judged"
-            else LdpcCode.from_family(family, rate, Z))
-    llr_np = noisy_llrs(code, 257, ebn0, seed=21)
-    llr_np[1, ::3] = -0.0
-    llr_np[2, ::5] = 1e4
+    ref, code = codes(family, rate, Z)
+    llr_np = special_llrs(code, ebn0)
     llr = torch.from_numpy(llr_np).to(cuda)
     before = minsum_flood.launches
     got = minsum_flood(code, llr, 50, 0.75, 0.0, early_stop)
@@ -65,24 +99,103 @@ def test_kernel_bitexact_vs_plain_and_golden(cuda, family, rate, Z, ebn0,
     want = build_decoder(code, "minsum", 50, 0.75, 0.0, "flooding",
                          early_stop)(llr)
     assert_same(got, want)
-    assert_same(got, golden_decode(code.H, llr_np, iters=50, alpha=0.75,
+    assert_same(got, golden_decode(ref.H, llr_np, iters=50, alpha=0.75,
                                    dtype=np.float32, early_stop=early_stop))
 
 
+@pytest.mark.parametrize("early_stop", [True, False])
+@pytest.mark.parametrize("family,rate,Z,ebn0", CODES)
+def test_layered_kernel_bitexact_vs_plain_and_golden(cuda, family, rate, Z,
+                                                     ebn0, early_stop):
+    ref, code = codes(family, rate, Z)
+    llr_np = special_llrs(code, ebn0)
+    llr = torch.from_numpy(llr_np).to(cuda)
+    before = minsum_layered.launches
+    got = minsum_layered(code, llr, 25, 0.75, 0.0, early_stop)
+    assert minsum_layered.launches == before + 1
+    want = build_decoder(code, "minsum", 25, 0.75, 0.0, "layered",
+                         early_stop)(llr)
+    assert_same(got, want)
+    assert_same(got, golden_decode(ref.H, llr_np, iters=25, alpha=0.75,
+                                   schedule="layered", dtype=np.float32,
+                                   early_stop=early_stop))
+
+
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+def test_sumproduct_kernels_agree_with_plain_and_golden(cuda, schedule):
+    ref, code = codes("judged", "1/2", 64)
+    llr_np = noisy_llrs(code, 257, 1.75, seed=22)
+    llr = torch.from_numpy(llr_np).to(cuda)
+    wrapper = WRAPPERS[("sumproduct", schedule)]
+    before = wrapper.launches
+    got = wrapper(code, llr, 30)
+    assert wrapper.launches == before + 1
+    plain = build_decoder(code, "sumproduct", 30, schedule=schedule)(llr)
+    # the same card: at most 2 of 257 frames may split on rounding
+    assert frame_agreement(got, plain) >= 0.99
+    gold = golden_decode(ref.H, llr_np, algo="sumproduct", iters=30,
+                         schedule=schedule)
+    assert min(agreement(got, gold)) >= 0.95
+    assert 0 < numpy_of(got)[1].mean() < 1
+
+
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+def test_sumproduct_kernels_on_extreme_llrs(cuda, schedule):
+    """+-1e30, zeros and 1e-30: the kernels give the plain version's
+    bits, ok and iters_used (whose posterior the CPU tests hold finite)."""
+    _, code = codes("wifi", "2/3", 27)
+    n = code.n
+    llr = torch.from_numpy(np.stack([
+        np.full(n, 1e30, np.float32), np.full(n, -1e30, np.float32),
+        np.zeros(n, np.float32),
+        np.asarray([1e20 if i % 2 else -1e20 for i in range(n)], np.float32),
+        np.asarray([0.0 if i % 3 else 1e-30 for i in range(n)], np.float32),
+    ])).to(cuda)
+    for early_stop in (True, False):
+        got = WRAPPERS[("sumproduct", schedule)](code, llr, 8,
+                                                 early_stop=early_stop)
+        want = build_decoder(code, "sumproduct", 8, schedule=schedule,
+                             early_stop=early_stop)(llr)
+        assert_same(got, want)
+
+
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+def test_twophase_on_card_bit_identical(cuda, schedule):
+    _, code = codes("judged", "1/2", 64)
+    llr = torch.from_numpy(noisy_llrs(code, 1024, 2.0, seed=23)).to(cuda)
+    iters, k = (50, 20) if schedule == "flooding" else (25, 9)
+    single = decode(code, llr, schedule=schedule, iters=iters)
+    for budget in (512, 1):  # compacted, and the full-batch fallback
+        fn = build_twophase_decoder(code, iters, k, budget,
+                                    report_fallback=True, schedule=schedule)
+        *got, n_unconv = fn(llr)
+        assert (n_unconv > budget) == (budget == 1)
+        assert_same(got, single)
+
+
 def test_decode_api_launches_the_kernel_and_checks_inputs(cuda):
-    code = LdpcCode.judged()
+    _, code = codes("judged", "1/2", 64)
     llr = torch.from_numpy(noisy_llrs(code, 64, 2.0, seed=3)).to(cuda)
-    before = minsum_flood.launches
     current = torch.cuda.current_device()
-    got = decode(code, llr)
-    assert minsum_flood.launches == before + 1
-    assert torch.cuda.current_device() == current
-    assert_same(got, decode(code, llr, impl="torch"))
+    for (algo, schedule), wrapper in WRAPPERS.items():
+        before = wrapper.launches
+        got = decode(code, llr, algo=algo, schedule=schedule, iters=20)
+        assert wrapper.launches == before + 1
+        assert torch.cuda.current_device() == current
+        want = decode(code, llr, algo=algo, schedule=schedule, iters=20,
+                      impl="torch")
+        if algo == "minsum":
+            assert_same(got, want)
+        else:
+            assert frame_agreement(got, want) >= 0.99
+    before = minsum_flood.launches
+    assert_same(decode(code, llr.cpu().numpy()), decode(code, llr))
+    assert minsum_flood.launches == before + 2  # NumPy input goes to the card
     with pytest.raises(TypeError):
-        minsum_flood(code, llr.double())
+        minsum_layered(code, llr.double())
     with pytest.raises(ValueError, match="contiguous"):
-        minsum_flood(code, torch.cat([llr, llr], 1)[:, ::2])
+        minsum_layered(code, torch.cat([llr, llr], 1)[:, ::2])
     with pytest.raises(ValueError):
         minsum_flood(code, llr[:, :100].contiguous())
-    empty = minsum_flood(code, llr[:0])
+    empty = minsum_layered(code, llr[:0])
     assert empty[0].shape == (0, code.n)

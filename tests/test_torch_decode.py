@@ -1,21 +1,26 @@
 """Port decoder vs the JAX package: bit-exact on bits, ok and iters_used.
 
-The plain PyTorch decoder (the CPU path of the port, and the oracle of
-the CUDA kernel) is held against the golden float32 model and the jnp
-reference decoder on the same NumPy LLRs (tests/test_torch_pallas.py
-holds it against the Pallas kernel in interpret mode).  LLRs holding
-+-0.0 are compared with golden only: the Pallas kernel reads sign bits
-where golden reads `x < 0`.
+The plain PyTorch flooding min-sum decoder (the CPU path of the port,
+and the oracle of the CUDA kernel) is held against the golden float32
+model and the jnp reference decoder on the same NumPy LLRs
+(tests/test_torch_pallas.py holds it against the Pallas kernel in
+interpret mode; tests/test_torch_layered_sp.py covers the layered
+schedule and sum-product).  LLRs holding +-0.0 are compared with golden
+only: the Pallas kernel reads sign bits where golden reads `x < 0`.
+Every code is the port's own LdpcCode, built from the JAX package's
+through LdpcCode.from_base_graph.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tpu_ldpc.codes import LdpcCode, make_base_graph
+from tpu_ldpc.codes import LdpcCode as JaxLdpcCode
+from tpu_ldpc.codes import make_base_graph
 from tpu_ldpc.decode.reference import build_decoder as jnp_build_decoder
 from tpu_ldpc.golden import decode as golden_decode
 from tpu_ldpc.golden import encode as golden_encode
+from tpu_ldpc_torch import LdpcCode
 from tpu_ldpc_torch.codes_device import to_device
 from tpu_ldpc_torch.decode import decode
 from tpu_ldpc_torch.decode.cuda_bp import minsum_flood
@@ -24,9 +29,18 @@ from tpu_ldpc_torch.decode.reference import build_decoder
 torch.set_num_threads(1)
 
 
+def twin(ref):
+    """The port's twin of a JAX package code (same B, Z and name)."""
+    return LdpcCode.from_base_graph(np.asarray(ref.B), ref.Z, ref.name)
+
+
 def toy_code(Z=8):
-    return LdpcCode.from_base_graph(
-        make_base_graph(4, 8, Z, seed=7), Z, f"toy{Z}")
+    return twin(JaxLdpcCode.from_base_graph(
+        make_base_graph(4, 8, Z, seed=7), Z, f"toy{Z}"))
+
+
+def jax_code(code):
+    return JaxLdpcCode.from_base_graph(np.asarray(code.B), code.Z, code.name)
 
 
 def noisy_llrs(code, batch, ebn0_db, seed):
@@ -48,7 +62,8 @@ def golden(code, llr, **kw):
 
 
 def jnp_ref(code, llr, **kw):
-    return [np.asarray(x) for x in jnp_build_decoder(code, "minsum", **kw)(llr)]
+    return [np.asarray(x)
+            for x in jnp_build_decoder(jax_code(code), "minsum", **kw)(llr)]
 
 
 def assert_same(got, want):
@@ -60,8 +75,8 @@ def assert_same(got, want):
 @pytest.mark.parametrize("name", ["toy", "wifi_z27", "judged"])
 def test_to_device_carries_the_layout(name):
     code = {"toy": toy_code,
-            "wifi_z27": lambda: LdpcCode.from_family("wifi", "2/3", 27),
-            "judged": LdpcCode.judged}[name]()
+            "wifi_z27": lambda: twin(JaxLdpcCode.from_family("wifi", "2/3", 27)),
+            "judged": lambda: twin(JaxLdpcCode.judged())}[name]()
     lay = code.layout
     dc = to_device(code, "cpu")
     assert dc is to_device(code, torch.device("cpu"))  # cached per pair
@@ -89,7 +104,7 @@ def test_plain_bitexact_vs_golden_jnp(alpha, beta, early_stop):
 
 
 def test_odd_z_wifi27():
-    code = LdpcCode.from_family("wifi", "2/3", 27)
+    code = twin(JaxLdpcCode.from_family("wifi", "2/3", 27))
     llr = noisy_llrs(code, 8, 2.0, seed=6)
     kw = dict(iters=20, alpha=0.75, beta=0.0, early_stop=True)
     got = port(code, llr, **kw)
@@ -99,7 +114,7 @@ def test_odd_z_wifi27():
 
 
 def test_judged_code():
-    code = LdpcCode.judged()
+    code = twin(JaxLdpcCode.judged())
     llr = noisy_llrs(code, 8, 1.25, seed=2)
     kw = dict(iters=50, alpha=0.75, beta=0.0, early_stop=True)
     got = port(code, llr, **kw)
@@ -148,25 +163,50 @@ def test_decode_api_dispatches_by_device():
     assert got[0].dtype == torch.uint8 and got[1].dtype == torch.bool
     assert got[2].dtype == torch.int32
     assert_same([x.numpy() for x in got], want)
-    assert_same([x.numpy() for x in decode(code, llr, impl="torch")], want)
+    assert_same([x.numpy() for x in decode(code, llr, impl="torch",
+                                           device="cpu")], want)
     # the kernel's wrapper takes its plain version only for CPU tensors
     got = minsum_flood(code, torch.from_numpy(llr), 50, 0.75, 0.0)
     assert_same([x.numpy() for x in got], want)
     with pytest.raises(ValueError, match="CUDA device"):
-        decode(code, llr, impl="cuda")
+        decode(code, llr, impl="cuda", device="cpu")
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(schedule="layered"), "K2"),
-    (dict(algo="sumproduct"), "K3"),
+    (dict(schedule="windowed"), "Queue 1 item 7"),
+    (dict(algo="bitflip"), "Queue 1 item 7"),
     (dict(algo="sumproduct-fast"), "K4"),
     (dict(quant_bits=6), "K5"),
     (dict(impl="pallas"), "Queue 2"),
-    (dict(impl="twophase"), "Queue 1 item 5"),
+    (dict(impl="jnp"), "Queue 1 item 1"),
     (dict(algo="wbf"), "Queue 1 item 7"),
 ])
 def test_unported_decoder_modes_raise(kw, item):
     code = toy_code()
     with pytest.raises(NotImplementedError, match=item):
-        decode(code, np.zeros((2, code.n), np.float32), **kw)
+        decode(code, np.zeros((2, code.n), np.float32), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(schedule="layered"),
+    dict(algo="sumproduct"),
+    dict(impl="twophase", phase1_iters=4, compact_budget=16),
+], ids=["layered", "sumproduct", "twophase"])
+def test_ported_decoder_modes_run(kw):
+    """The modes slice 2 ported (they raised in slice 1) decode NumPy
+    input on the CPU like the JAX package's decode()."""
+    code = toy_code()
+    llr = noisy_llrs(code, 24, 2.5, seed=15)
+    got = [x.numpy() for x in decode(code, llr, iters=20, device="cpu",
+                                     **kw)]
+    schedule = kw.get("schedule", "flooding")
+    algo = kw.get("algo", "minsum")
+    want = golden_decode(code.H, llr, algo=algo, iters=20, alpha=0.75,
+                         schedule=schedule,
+                         dtype=np.float32 if algo == "minsum" else np.float64)
+    if algo == "minsum":
+        assert_same(got, want)
+    else:
+        assert (got[0] == want[0]).all(axis=1).mean() >= 0.97
+    assert 0 < got[1].mean()
 

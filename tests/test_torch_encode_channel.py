@@ -2,7 +2,9 @@
 
 The same NumPy inputs go through both packages: encoders must agree
 exactly (GF(2)); LLRs to rtol 1e-6, because XLA on the CPU may contract
-sqrt(sigma2) * noise + x into one fused multiply-add.
+sqrt(sigma2) * noise + x into one fused multiply-add.  The port encodes
+its own LdpcCode, built from the JAX package's through
+LdpcCode.from_base_graph.
 """
 
 import jax.numpy as jnp
@@ -13,9 +15,11 @@ import torch
 
 from tpu_ldpc.channel.awgn import bpsk as jax_bpsk
 from tpu_ldpc.channel.awgn import noise_sigma2 as jax_noise_sigma2
-from tpu_ldpc.codes import LdpcCode, make_base_graph, make_sc_base_graph
+from tpu_ldpc.codes import LdpcCode as JaxLdpcCode
+from tpu_ldpc.codes import make_base_graph, make_sc_base_graph
 from tpu_ldpc.encode.encoder import build_encoder as jax_build_encoder
 from tpu_ldpc.golden import encode as golden_encode
+from tpu_ldpc_torch import LdpcCode
 from tpu_ldpc_torch.channel.awgn import (
     awgn_llrs, llrs_from_noise, noise_sigma2)
 from tpu_ldpc_torch.encode.encoder import build_encoder, select_encoder
@@ -23,19 +27,28 @@ from tpu_ldpc_torch.encode.encoder import build_encoder, select_encoder
 torch.set_num_threads(1)
 
 
+def twin(ref):
+    return LdpcCode.from_base_graph(np.asarray(ref.B), ref.Z, ref.name)
+
+
+def jax_code(code):
+    return JaxLdpcCode.from_base_graph(np.asarray(code.B), code.Z, code.name)
+
+
 def toy_code(Z=8):
-    return LdpcCode.from_base_graph(
-        make_base_graph(4, 8, Z, seed=7), Z, f"toy{Z}")
+    return twin(JaxLdpcCode.from_base_graph(
+        make_base_graph(4, 8, Z, seed=7), Z, f"toy{Z}"))
 
 
 def sc_code():
-    return LdpcCode.from_base_graph(make_sc_base_graph(4, 8), 8, "sc_l4_z8")
+    return twin(JaxLdpcCode.from_base_graph(make_sc_base_graph(4, 8), 8,
+                                            "sc_l4_z8"))
 
 
 CODES = {
     "toy": toy_code,
-    "wifi_z27": lambda: LdpcCode.from_family("wifi", "2/3", 27),
-    "judged": LdpcCode.judged,
+    "wifi_z27": lambda: twin(JaxLdpcCode.from_family("wifi", "2/3", 27)),
+    "judged": lambda: twin(JaxLdpcCode.judged()),
 }
 
 
@@ -52,7 +65,7 @@ def test_generator_encoder_exact(name):
     assert c.dtype == torch.uint8 and c.shape == (16, code.n)
     c = c.numpy()
     np.testing.assert_array_equal(
-        c, np.asarray(jax_build_encoder(code, "generator")(u)))
+        c, np.asarray(jax_build_encoder(jax_code(code), "generator")(u)))
     np.testing.assert_array_equal(c, golden_encode(code.H, u))
     assert _syndrome_zero(code, c)
 
@@ -60,7 +73,7 @@ def test_generator_encoder_exact(name):
 def test_pivot_encoder_matches_jax_on_sc_chain():
     code = sc_code()
     fn = build_encoder(code, "pivot", device="cpu")
-    jfn = jax_build_encoder(code, "pivot")
+    jfn = jax_build_encoder(jax_code(code), "pivot")
     assert fn.k == jfn.k and fn.k >= code.k
     np.testing.assert_array_equal(fn.info_cols, jfn.info_cols)
     u = np.random.default_rng(4).integers(0, 2, (8, fn.k)).astype(np.uint8)

@@ -1,21 +1,39 @@
-"""The PyTorch port loads without JAX (tpu_ldpc_torch imports torch only)."""
+"""The PyTorch port stands alone: tpu_ldpc_torch imports torch, never jax
+and nothing of the JAX package tpu_ldpc (it keeps its own copies of the
+framework-free modules it needs)."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
 
+import numpy as np
+import pytest
+import torch
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_MODULES = (
+    "tpu_ldpc_torch", "tpu_ldpc_torch.codes", "tpu_ldpc_torch.codes.alist",
+    "tpu_ldpc_torch.codes.gf2", "tpu_ldpc_torch.codes_device",
+    "tpu_ldpc_torch.report.waterfall", "tpu_ldpc_torch.decode",
+    "tpu_ldpc_torch.decode.cuda_bp", "tpu_ldpc_torch.decode.twophase",
+    "tpu_ldpc_torch.decode.knobs", "tpu_ldpc_torch.encode",
+    "tpu_ldpc_torch.channel", "tpu_ldpc_torch.sim",
+    "tpu_ldpc_torch.sim.state", "tpu_ldpc_torch.cli.config",
+    "tpu_ldpc_torch.cli.sim", "tpu_ldpc_torch.cli.profile_mc",
+    "tpu_ldpc_torch._build",
+)
 
 
 def test_port_imports_without_jax():
     code = (
-        "import sys\n"
-        "import tpu_ldpc_torch, tpu_ldpc_torch.decode, tpu_ldpc_torch.sim\n"
-        "import tpu_ldpc_torch.cli.sim, tpu_ldpc_torch.decode.cuda_bp\n"
-        "import tpu_ldpc_torch.encode, tpu_ldpc_torch.channel\n"
-        "import tpu_ldpc_torch.sim.state, tpu_ldpc_torch.cli.config\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-        "if m.startswith('jax'))\n"
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_ldpc'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -26,8 +44,6 @@ def test_port_imports_without_jax():
 
 
 def _imported_modules(path):
-    import ast
-
     with open(path) as f:
         tree = ast.parse(f.read())
     for node in ast.walk(tree):
@@ -35,6 +51,20 @@ def _imported_modules(path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             yield node.module
+
+
+def test_no_port_module_imports_the_jax_package():
+    """AST scan, module-level and function-level imports alike; the
+    top-level name must be exactly tpu_ldpc (tpu_ldpc_torch shares its
+    first letters)."""
+    paths = sorted(glob.glob(os.path.join(REPO, "tpu_ldpc_torch", "**",
+                                          "*.py"), recursive=True))
+    paths.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(paths) > 20
+    for path in paths:
+        bad = [m for m in _imported_modules(path)
+               if m.split(".")[0] in ("jax", "jaxlib", "tpu_ldpc")]
+        assert not bad, (os.path.relpath(path, REPO), bad)
 
 
 def test_chip_scripts_import_only_the_port():
@@ -53,3 +83,26 @@ def test_chip_scripts_fail_without_a_card():
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 1, (argv, out.stderr)
         assert '"ok"' not in out.stdout, argv
+
+
+def test_decode_numpy_input_asks_for_the_card(monkeypatch):
+    """An entry point of the port runs on the card unless the caller asks
+    for the CPU: NumPy LLRs with no device go to 'cuda' (which raises
+    without a card), device='cpu' runs the plain version; a tensor stays
+    on its own device."""
+    from tpu_ldpc_torch import LdpcCode
+    from tpu_ldpc_torch.codes import make_base_graph
+    from tpu_ldpc_torch.decode import decode
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    code = LdpcCode.from_base_graph(make_base_graph(4, 8, 8, seed=7), 8,
+                                    "toy8")
+    llr = np.full((3, code.n), 4.0, np.float32)
+    with pytest.raises(RuntimeError, match="is_available"):
+        decode(code, llr)
+    with pytest.raises(RuntimeError, match="is_available"):
+        decode(code, torch.from_numpy(llr), device="cuda")
+    bits, ok, iu = decode(code, llr, device="cpu")
+    assert bits.device.type == "cpu" and ok.all() and (iu == 0).all()
+    bits, ok, iu = decode(code, torch.from_numpy(llr))
+    assert bits.device.type == "cpu" and ok.all()

@@ -1,23 +1,26 @@
 """Port decoder vs the Pallas TPU kernel, run in interpret mode on the CPU
 as tests/test_pallas.py runs it: bit-exact on bits, ok and iters_used.
 (The CUDA kernel that replaces the Pallas one is held against the same
-plain decoder on the card: chip_smoke.py.)
+plain decoder on the card: chip_smoke.py.)  The port decodes its own
+LdpcCode, built from the JAX package's through LdpcCode.from_base_graph.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tpu_ldpc.codes import LdpcCode, make_base_graph
+from tpu_ldpc.codes import LdpcCode as JaxLdpcCode
+from tpu_ldpc.codes import make_base_graph
 from tpu_ldpc.decode.pallas_bp import build_pallas_decoder
 from tpu_ldpc.golden import encode as golden_encode
+from tpu_ldpc_torch import LdpcCode
 from tpu_ldpc_torch.decode.reference import build_decoder
 
 torch.set_num_threads(1)
 
 
 def toy_code(Z=8):
-    return LdpcCode.from_base_graph(
+    return JaxLdpcCode.from_base_graph(
         make_base_graph(4, 8, Z, seed=7), Z, f"toy{Z}")
 
 
@@ -31,7 +34,8 @@ def noisy_llrs(code, batch, ebn0_db, seed):
 
 
 def assert_same_as_pallas(code, llr, **kw):
-    got = build_decoder(code, "minsum", **kw)(torch.from_numpy(llr))
+    twin = LdpcCode.from_base_graph(np.asarray(code.B), code.Z, code.name)
+    got = build_decoder(twin, "minsum", **kw)(torch.from_numpy(llr))
     pallas = build_pallas_decoder(code, "minsum", batch_tile=128,
                                   interpret=True, **kw)
     for name, g, w in zip(("bits", "ok", "iters_used"), got, pallas(llr)):

@@ -1,26 +1,29 @@
 """tpu_ldpc_torch: the PyTorch / CUDA port of tpu_ldpc for NVIDIA Hopper.
 
 A second package beside ``tpu_ldpc``, which stays the reference.  It
-imports ``torch`` and never ``jax``.  The framework-free parts of
-``tpu_ldpc`` are reused, not copied: ``tpu_ldpc.codes`` (``LdpcCode``,
-``TannerLayout``, the registry), ``tpu_ldpc.golden`` and
-``tpu_ldpc.report.waterfall``.
+imports ``torch`` and never ``jax``, and nothing of ``tpu_ldpc``: what it
+needs of the JAX package's framework-free modules it keeps as its own
+copies, under the same names (``codes/``, ``report/``).
 
-Slice 1 covers the main path: the judged (1024, 512) code and the
-registry's wifi / wimax families, BPSK over AWGN, normalized / offset
-min-sum with the flooding schedule, early termination on or off:
+Slices 1 and 2 cover BPSK over AWGN on the judged (1024, 512) code, the
+registry's wifi / wimax families, alist and SC codes, decoded with
+normalized / offset min-sum or exact sum-product, on the flooding or the
+layered schedule, early termination on or off, in one pass or in two
+phases with straggler compaction:
 
+- ``codes``: LdpcCode, the registry, the Tanner layout, GF(2) algebra;
 - ``codes_device.to_device``: the code's tables as tensors on a device;
 - ``channel``, ``encode``: plain PyTorch;
 - ``decode.reference``: the plain PyTorch decoder (the CPU path);
-- ``decode.cuda_bp`` + ``csrc/minsum_flood.cu``: the hand-written CUDA
-  decode kernel for sm_90a;
-- ``decode.api``, ``sim``, ``cli``: the public entry points.
+- ``decode.cuda_bp`` + ``csrc/bp_flood.cu``, ``csrc/bp_layered.cu``: the
+  hand-written CUDA decode kernels for sm_90a;
+- ``decode.twophase``, ``decode.knobs``: two-phase decoding;
+- ``decode.api``, ``sim``, ``cli``, ``report``: the public entry points.
 
 Every function takes an explicit ``device`` (or follows its input
 tensor's device) and every random draw an explicit ``torch.Generator``.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-from tpu_ldpc.codes.code import LdpcCode  # noqa: F401
+from tpu_ldpc_torch.codes.code import LdpcCode  # noqa: F401

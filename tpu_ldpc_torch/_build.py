@@ -1,15 +1,17 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds):
+Each ``csrc/<name>.cu`` is one shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds).  The first
+``load_library`` call starts one ``nvcc`` for every source whose library
+is missing, all at once, and waits for them all:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+         -shared -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/<name>.cu
 
-The library lands in ``build/tpu_ldpc_torch/libldpc_kernels_<hash>.so``
-at the repository root, named by a hash of the sources and flags, so a
-source change rebuilds.  A failed build raises with nvcc's output; there
-is no fallback.
+A library lands in ``build/tpu_ldpc_torch/lib<name>_<hash>.so`` at the
+repository root, named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so a change rebuilds.  A failed build
+raises with nvcc's output; there is no fallback.
 """
 
 from __future__ import annotations
@@ -32,9 +34,9 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_lib = None
-build_log = ""       # nvcc's output (ptxas register / spill report)
-build_seconds = 0.0  # 0.0 when the library was already built
+_libs: dict[str, ctypes.CDLL] = {}
+build_log: dict[str, str] = {}  # per source: nvcc's output (ptxas report)
+build_seconds = 0.0  # wall time of the parallel build; 0.0 when all were built
 
 
 def _find_nvcc() -> str:
@@ -51,67 +53,106 @@ def _find_nvcc() -> str:
     )
 
 
-def _sources() -> list[str]:
+def sources() -> dict[str, str]:
+    """{library name: path} of every csrc/*.cu."""
     srcs = sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cu")))
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {_CSRC_DIR}")
-    return srcs
+    return {os.path.basename(p)[:-3]: p for p in srcs}
 
 
-def library_path() -> str:
+def library_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cu*"))):
+    deps = [sources()[name]]
+    deps += sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cuh")))
+    for path in deps:
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"libldpc_kernels_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def _compile(out: str) -> None:
-    global build_log, build_seconds
+def _build_missing() -> None:
+    """Start one nvcc per missing library, all at once; wait for all."""
+    global build_seconds
+    todo = {name: library_path(name) for name in sources()}
+    todo = {name: out for name, out in todo.items() if not os.path.exists(out)}
+    if not todo:
+        return
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = _find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = {}
+    for name, out in todo.items():
+        tmp = f"{out}.tmp{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, sources()[name]]
+        procs[name] = (cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (cmd, tmp, out, proc) in procs.items():
+        build_log[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            failed.append(f"nvcc failed (rc={proc.returncode}): "
+                          f"{' '.join(cmd)}\n{build_log[name]}")
+        else:
+            os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n{build_log}"
-        )
-    os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def _declare(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ldpc_minsum_flood.argtypes = [
-        p, p, p, p,          # llr, bits, ok, iters_used
-        p, p, p, p, p,       # edge_col, edge_shift, row_ptr, col_slots, col_deg
-        i, i, i, i, i, i,    # batch, Z, mb, nb, E, max_col_deg
-        i, f, f, i,          # iters, alpha, beta, early_stop
-        p,                   # stream
-    ]
-    lib.ldpc_minsum_flood.restype = ctypes.c_int
-    lib.ldpc_minsum_flood_smem_bytes.argtypes = [i, i, i]
-    lib.ldpc_minsum_flood_smem_bytes.restype = ctypes.c_size_t
+    if hasattr(lib, "ldpc_bp_flood"):
+        lib.ldpc_bp_flood.argtypes = [
+            i,                   # algo
+            p, p, p, p,          # llr, bits, ok, iters_used
+            p, p, p, p, p,       # edge_col, edge_shift, row_ptr, col_slots, col_deg
+            i, i, i, i, i, i,    # batch, Z, mb, nb, E, max_col_deg
+            i, f, f, i,          # iters, alpha, beta, early_stop
+            p,                   # stream
+        ]
+        lib.ldpc_bp_flood.restype = ctypes.c_int
+        lib.ldpc_bp_flood_smem_bytes.argtypes = [i, i, i]
+        lib.ldpc_bp_flood_smem_bytes.restype = ctypes.c_size_t
+    if hasattr(lib, "ldpc_bp_layered"):
+        lib.ldpc_bp_layered.argtypes = [
+            i,                   # algo
+            p, p, p, p,          # llr, bits, ok, iters_used
+            p, p, p,             # edge_col, edge_shift, row_ptr
+            i, i, i, i, i,       # batch, Z, mb, nb, E
+            i, f, f, i,          # iters, alpha, beta, early_stop
+            p,                   # stream
+        ]
+        lib.ldpc_bp_layered.restype = ctypes.c_int
+        lib.ldpc_bp_layered_smem_bytes.argtypes = [i, i, i]
+        lib.ldpc_bp_layered_smem_bytes.restype = ctypes.c_size_t
+        lib.ldpc_bp_layered_threads.argtypes = [i]
+        lib.ldpc_bp_layered_threads.restype = ctypes.c_int
     lib.ldpc_cuda_error_string.argtypes = [i]
     lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
 
 
-def load_library():
-    """The kernels' ctypes library, built on first call."""
-    global _lib
+def load_library(name: str):
+    """The ctypes library of csrc/<name>.cu; the first call builds every
+    missing library in parallel."""
     with _lock:
-        if _lib is None:
-            path = library_path()
+        if name not in _libs:
+            if name not in sources():
+                raise ValueError(f"no CUDA source csrc/{name}.cu")
+            path = library_path(name)
             if not os.path.exists(path):
-                _compile(path)
+                _build_missing()
             lib = ctypes.CDLL(path)
             _declare(lib)
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return _libs[name]
+
+
+def load_all() -> dict[str, ctypes.CDLL]:
+    """Every kernel library (built in parallel where missing)."""
+    return {name: load_library(name) for name in sources()}
 
 
 def check(lib, err: int, what: str) -> None:

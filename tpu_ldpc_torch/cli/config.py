@@ -2,7 +2,7 @@
 JSON + dotted CLI overrides, a provenance hash stamped into every CSV and
 checkpoint.
 
-Slice 1 builds the judged, wifi, wimax, alist and sc codes.  The NR-like
+It builds the judged, wifi, wimax, alist and sc codes.  The NR-like
 families need the puncturing of ``channel/adapt.py`` and raise; the
 channel has no rate adaptation and no CRC yet (ROADMAP Queue 1 item 6).
 """
@@ -29,7 +29,7 @@ class CodeSpec:
     L: int = 32              # chain length, for family='sc'
 
     def build(self):
-        from tpu_ldpc.codes.code import LdpcCode
+        from tpu_ldpc_torch.codes.code import LdpcCode
 
         if self.family == "judged":
             return LdpcCode.judged()
@@ -39,11 +39,11 @@ class CodeSpec:
                 "(channel/adapt.py), not ported yet (ROADMAP Queue 1 item 6)"
             )
         if self.family == "alist":
-            from tpu_ldpc.codes.alist import load_alist
+            from tpu_ldpc_torch.codes.alist import load_alist
 
             return load_alist(self.path)
         if self.family == "sc":
-            from tpu_ldpc.codes.base_graphs import make_sc_base_graph
+            from tpu_ldpc_torch.codes.base_graphs import make_sc_base_graph
 
             return LdpcCode.from_base_graph(
                 make_sc_base_graph(self.L, self.Z),

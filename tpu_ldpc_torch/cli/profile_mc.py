@@ -39,7 +39,7 @@ def _smi(query: str) -> str:
 
 def _smem_accesses_per_iteration(code, E: int) -> int:
     """4-byte shared-memory accesses of one codeword-iteration of
-    csrc/minsum_flood.cu: CN pass 1 reads P and R, pass 2 reads P and R
+    csrc/bp_flood.cu (min-sum): CN pass 1 reads P and R, pass 2 reads P and R
     and writes R (5 per edge-check); the VN pass reads R (1 per edge) and
     reads L and writes P (2 per variable)."""
     return 6 * E * code.Z + 2 * code.n

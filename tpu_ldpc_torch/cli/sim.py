@@ -3,10 +3,17 @@
 
     python -m tpu_ldpc_torch.cli.sim --family judged --ebn0 1.0 2.0 3.0 \
         --device cuda --target-fe 100 --csv out.csv --checkpoint sweep.json
+    python -m tpu_ldpc_torch.cli.sim --family judged --ebn0 2.0 \
+        --schedule layered --iters 25 --impl twophase \
+        --phase1-iters 9 --compact-budget 768
 
 ``--device`` defaults to cuda and raises without a card; ``--device cpu``
-runs the plain PyTorch path.  ``--mesh``, ``--profile`` and
-``--find-fer`` are not ported yet and raise.
+runs the plain PyTorch path.  ``--algo`` minsum | sumproduct,
+``--schedule`` flooding | layered, ``--impl`` auto | torch | cuda |
+twophase (with ``--phase1-iters`` / ``--compact-budget``).
+``--algo sumproduct-fast | bitflip | wbf``, ``--schedule windowed``,
+``--quant-bits``, ``--mesh``, ``--profile`` and ``--find-fer`` are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -45,6 +52,12 @@ def build_parser():
                    help="fixed-point emulation (not ported yet)")
     p.add_argument("--impl", choices=["auto", "torch", "cuda", "jnp",
                                       "pallas", "twophase"])
+    p.add_argument("--phase1-iters", type=int,
+                   help="impl=twophase: phase-1 iteration budget K "
+                        "(tune with decode.twophase.tune_phase1_iters)")
+    p.add_argument("--compact-budget", type=int,
+                   help="impl=twophase: compacted phase-2 batch size "
+                        "(too small: the full batch is decoded again)")
     p.add_argument("--device", help="cuda (default) or cpu")
     p.add_argument("--batch", type=int)
     p.add_argument("--target-fe", type=int)
@@ -72,6 +85,8 @@ def args_to_config(args):
         "decode.alpha": args.alpha, "decode.beta": args.beta,
         "decode.schedule": args.schedule, "decode.impl": args.impl,
         "decode.quant_bits": args.quant_bits,
+        "decode.phase1_iters": args.phase1_iters,
+        "decode.compact_budget": args.compact_budget,
         "run.batch": args.batch, "run.target_frame_errors": args.target_fe,
         "run.max_frames": args.max_frames, "run.seed": args.seed,
         "run.state_path": args.checkpoint, "run.out_csv": args.csv,
@@ -93,7 +108,7 @@ def main(argv=None):
             raise NotImplementedError(f"--{flag.replace('_', '-')}: {why}")
     cfg = args_to_config(args)
 
-    from tpu_ldpc.report.waterfall import waterfall_csv, waterfall_table
+    from tpu_ldpc_torch.report.waterfall import waterfall_csv, waterfall_table
     from tpu_ldpc_torch.sim.mc import run_ber
     from tpu_ldpc_torch.sim.state import SweepState
 
@@ -120,7 +135,8 @@ def main(argv=None):
 
     print(f"\ncode={code.name} (n={code.n}, k={code.k}, R={code.rate:.3f}) "
           f"algo={cfg.decode.algo} iters={cfg.decode.iters} "
-          f"schedule={cfg.decode.schedule} device={cfg.run.device} "
+          f"schedule={cfg.decode.schedule} impl={cfg.decode.impl} "
+          f"device={cfg.run.device} "
           f"config={chash} wall={wall:.1f}s\n")
     print(waterfall_table(results))
     if cfg.run.out_csv:

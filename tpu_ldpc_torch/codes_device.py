@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from tpu_ldpc.codes.code import LdpcCode
+from tpu_ldpc_torch.codes.code import LdpcCode
 
 
 def resolve_device(device) -> torch.device:

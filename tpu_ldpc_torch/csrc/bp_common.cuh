@@ -1,0 +1,137 @@
+// Shared pieces of the BP decode kernels (bp_flood.cu, bp_layered.cu):
+// circulant index arithmetic, the standalone syndrome, and the two
+// check-node (CN) updates as template parameters.
+//
+// A CN update is run by one thread over one check's edges in edge order,
+// in two passes that see the same q values (the caller recomputes q from
+// the same operands, so it rounds the same):
+//   cn.add(t, q)   pass 1, slot t = 0 .. deg-1 of the row;
+//   cn.finish(deg) after pass 1;
+//   cn.out(t, q)   pass 2: the CN->VN message of slot t.
+// So no per-row array is kept and the row degree is unbounded.
+//
+// Signs read `q < 0` (so -0.0 is positive) and messages are formed as
+// (total_sign * own_sign) * magnitude, as golden and the plain PyTorch
+// version form them: no sign bits are OR-ed into a magnitude.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace ldpc {
+
+// (a + b) mod Z and (a - b) mod Z for a, b in [0, Z): a conditional
+// add or subtract, never C's `%` (which keeps the sign of a negative
+// dividend).  Works for odd Z.
+__device__ __forceinline__ int wrap_add(int a, int b, int Z) {
+  const int x = a + b;
+  return x >= Z ? x - Z : x;
+}
+
+__device__ __forceinline__ int wrap_sub(int a, int b, int Z) {
+  const int x = a - b;
+  return x < 0 ? x + Z : x;
+}
+
+// Violated checks of hard(P) among this thread's checks (check c =
+// threadIdx.x, threadIdx.x + blockDim.x, ...; c = i * Z + r).
+__device__ __forceinline__ int count_violations(const float* P,
+                                                const int32_t* edge_col,
+                                                const int32_t* edge_shift,
+                                                const int32_t* row_ptr,
+                                                int Z, int m) {
+  int viol = 0;
+  for (int c = threadIdx.x; c < m; c += blockDim.x) {
+    const int i = c / Z;
+    const int r = c - i * Z;
+    int parity = 0;
+    for (int e = row_ptr[i]; e < row_ptr[i + 1]; ++e) {
+      parity ^= P[edge_col[e] * Z + wrap_add(r, edge_shift[e], Z)] < 0.0f;
+    }
+    viol += parity;
+  }
+  return viol;
+}
+
+// Normalized / offset min-sum: the golden sequential two-min scan with
+// first-occurrence argmin; a single-edge row sends its own magnitude.
+struct MinSum {
+  float alpha, beta;
+  float min1, min2;
+  int argmin, neg;
+
+  __device__ __forceinline__ void begin() {
+    min1 = 0.0f;
+    min2 = INFINITY;
+    argmin = 0;
+    neg = 0;
+  }
+  __device__ __forceinline__ void add(int t, float q) {
+    const float mag = fabsf(q);
+    neg ^= q < 0.0f;
+    if (t == 0) {
+      min1 = mag;
+    } else if (mag < min1) {
+      min2 = min1;
+      min1 = mag;
+      argmin = t;
+    } else {
+      min2 = fminf(min2, mag);
+    }
+  }
+  __device__ __forceinline__ void finish(int deg) {
+    if (deg == 1) min2 = min1;
+  }
+  __device__ __forceinline__ float out(int t, float q) const {
+    const float total_sign = neg ? -1.0f : 1.0f;
+    const float sign = q < 0.0f ? -1.0f : 1.0f;
+    const float mag_excl = fmaxf((t == argmin ? min2 : min1) - beta, 0.0f);
+    return (total_sign * sign) * (alpha * mag_excl);
+  }
+};
+
+// Sum-product stability clips, the golden model's SP_MIN_MAG / SP_MAX_MAG.
+constexpr float kSpMinMag = 1e-9f;
+constexpr float kSpMaxMag = 30.0f;
+
+// phi(x) = -log(tanh(x/2)) on x clipped to [kSpMinMag, kSpMaxMag].  At
+// the top clip tanhf rounds to 1 and phi is -0.0; the message's sign
+// comes only from the sign product it is multiplied by.
+__device__ __forceinline__ float phi(float x) {
+  x = fminf(fmaxf(x, kSpMinMag), kSpMaxMag);
+  return -logf(tanhf(x * 0.5f));
+}
+
+// Exact sum-product: phi of each |q| summed in edge order, output
+// (total_sign * own_sign) * phi(tot - phi_e).  alpha / beta are unused.
+struct SumProduct {
+  float alpha, beta;
+  float tot;
+  int neg;
+
+  __device__ __forceinline__ void begin() {
+    tot = 0.0f;
+    neg = 0;
+  }
+  __device__ __forceinline__ void add(int t, float q) {
+    const float ph = phi(fabsf(q));
+    neg ^= q < 0.0f;
+    tot = t == 0 ? ph : tot + ph;  // the first term as is: -0.0 stays -0.0
+  }
+  __device__ __forceinline__ void finish(int) {}
+  __device__ __forceinline__ float out(int, float q) const {
+    const float total_sign = neg ? -1.0f : 1.0f;
+    const float sign = q < 0.0f ? -1.0f : 1.0f;
+    return (total_sign * sign) * phi(tot - phi(fabsf(q)));
+  }
+};
+
+enum Algo { kMinSum = 0, kSumProduct = 1 };
+
+}  // namespace ldpc
+
+extern "C" const char* ldpc_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

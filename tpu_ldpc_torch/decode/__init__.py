@@ -1,3 +1,4 @@
-"""Decoders: plain PyTorch flooding min-sum + the CUDA kernel (L2)."""
+"""Decoders: plain PyTorch min-sum / sum-product on the flooding and
+layered schedules, the CUDA kernels, two-phase decoding (L2)."""
 
 from tpu_ldpc_torch.decode.api import build_decode_fn, decode  # noqa: F401

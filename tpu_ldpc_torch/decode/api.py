@@ -1,16 +1,20 @@
 """Decoder dispatch (port of ``tpu_ldpc/decode/api.py``).
 
-``decode(code, llrs, algo=..., iters=...) -> (bits, ok, iters_used)``.
-``impl`` picks the implementation:
+``decode(code, llrs, algo=..., iters=..., schedule=...) -> (bits, ok,
+iters_used)``.  algo is 'minsum' or 'sumproduct', schedule 'flooding' or
+'layered'.  ``impl`` picks the implementation:
 
 - ``'auto'``: the CUDA kernel for CUDA tensors, the plain PyTorch
   version for CPU tensors -- chosen by the tensor's device, never as a
   fallback;
 - ``'torch'``: the plain PyTorch version on any device;
-- ``'cuda'``: the CUDA kernel; raises for a tensor that is not on the card.
+- ``'cuda'``: the CUDA kernel; raises for a tensor that is not on the card;
+- ``'twophase'``: two-phase ET with straggler compaction
+  (``decode/twophase.py``), bit-identical to single-pass ET; its knobs
+  resolve through ``decode/knobs.py``.
 
-Slice 1 ports flooding min-sum only.  Everything else raises
-NotImplementedError naming its ROADMAP item.
+``sumproduct-fast``, quantization, ``bitflip`` / ``wbf`` and the windowed
+schedule raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,15 +22,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_ldpc.codes.code import LdpcCode
+from tpu_ldpc_torch.codes.code import LdpcCode
 from tpu_ldpc_torch.codes_device import resolve_device
 
 _NOT_PORTED_IMPL = {
     "pallas": "the TPU kernel's counterpart is impl='cuda' "
-              "(ROADMAP Queue 2 K1)",
+              "(ROADMAP Queue 2)",
     "jnp": "the jnp reference's counterpart is impl='torch' "
            "(ROADMAP Queue 1 item 1)",
-    "twophase": "two-phase straggler compaction is ROADMAP Queue 1 item 5",
 }
 
 
@@ -55,28 +58,44 @@ def build_decode_fn(code: LdpcCode, cfg, device):
             f"impl={impl!r} is not available in the port: "
             f"{_NOT_PORTED_IMPL[impl]}"
         )
-    if impl not in ("auto", "torch", "cuda"):
+    if impl not in ("auto", "torch", "cuda", "twophase"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "cuda" and device.type != "cuda":
         raise ValueError(f"impl='cuda' needs a CUDA device, got {device}")
 
     from tpu_ldpc_torch.decode.reference import build_decoder
 
-    # validates algo / schedule (raises NotImplementedError for K2-K4)
+    # validates algo / schedule (raises NotImplementedError for K4)
     plain = build_decoder(code, cfg.algo, cfg.iters, cfg.alpha, cfg.beta,
                           cfg.schedule, True)
+    if impl == "twophase":
+        from tpu_ldpc_torch.decode.knobs import resolve_twophase_knobs
+        from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
+
+        k, b, source = resolve_twophase_knobs(
+            code, cfg.schedule, getattr(cfg, "phase1_iters", None),
+            getattr(cfg, "compact_budget", None))
+        run = build_twophase_decoder(
+            code, iters=cfg.iters, phase1_iters=k, budget=b,
+            warn_on_fallback=source != "explicit", algo=cfg.algo,
+            alpha=cfg.alpha, beta=cfg.beta, schedule=cfg.schedule)
+    elif impl == "torch":
+        run = plain
+    else:
+        from tpu_ldpc_torch.decode.cuda_bp import WRAPPERS
+
+        wrapper = WRAPPERS[(cfg.algo, cfg.schedule)]
+
+        def run(llr):
+            return wrapper(code, llr, cfg.iters, cfg.alpha, cfg.beta,
+                           early_stop=True)
 
     def decode_fn(llr: torch.Tensor):
         if llr.device.type != device.type:
             raise ValueError(
                 f"llr is on {llr.device}, decoder was built for {device}"
             )
-        if impl == "torch":
-            return plain(llr)
-        from tpu_ldpc_torch.decode.cuda_bp import minsum_flood
-
-        return minsum_flood(code, llr, cfg.iters, cfg.alpha, cfg.beta,
-                            early_stop=True)
+        return run(llr)
 
     return decode_fn
 
@@ -91,13 +110,24 @@ def decode(
     schedule: str = "flooding",
     impl: str = "auto",
     quant_bits: int | None = None,
+    phase1_iters: int | None = None,
+    compact_budget: int | None = None,
+    device=None,
 ):
-    """Decode (batch, n) LLRs on their own device (NumPy input: the CPU)."""
+    """Decode (batch, n) LLRs.
+
+    device=None: a tensor stays on its own device; NumPy input goes to
+    the card ('cuda', which raises without one) -- pass device='cpu' for
+    the plain PyTorch path.  A given device moves the LLRs there."""
     from tpu_ldpc_torch.sim.mc import DecodeCfg
 
+    if device is None:
+        device = llrs.device if isinstance(llrs, torch.Tensor) else "cuda"
+    device = resolve_device(device)
     if not isinstance(llrs, torch.Tensor):
         llrs = torch.as_tensor(np.asarray(llrs, dtype=np.float32))
-    llrs = llrs.to(torch.float32).contiguous()
+    llrs = llrs.to(device=device, dtype=torch.float32).contiguous()
     cfg = DecodeCfg(algo=algo, iters=iters, alpha=alpha, beta=beta,
-                    schedule=schedule, impl=impl, quant_bits=quant_bits)
-    return build_decode_fn(code, cfg, llrs.device)(llrs)
+                    schedule=schedule, impl=impl, quant_bits=quant_bits,
+                    phase1_iters=phase1_iters, compact_budget=compact_budget)
+    return build_decode_fn(code, cfg, device)(llrs)

@@ -22,7 +22,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from tpu_ldpc.codes.code import LdpcCode
+from tpu_ldpc_torch.codes.code import LdpcCode
 from tpu_ldpc_torch.codes_device import resolve_device, to_device
 
 
@@ -45,7 +45,7 @@ def _build_encoder(code: LdpcCode, method: str, device: torch.device):
         return encode_fn
 
     if method == "pivot":
-        from tpu_ldpc.golden.encoder import gf2_row_reduce
+        from tpu_ldpc_torch.codes.gf2 import gf2_row_reduce
 
         Hd = (np.asarray(sp.csr_matrix(code.H).todense()) % 2).astype(np.uint8)
         n = Hd.shape[1]

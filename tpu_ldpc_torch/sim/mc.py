@@ -26,7 +26,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from tpu_ldpc.codes.code import LdpcCode
+from tpu_ldpc_torch.codes.code import LdpcCode
 from tpu_ldpc_torch.channel.awgn import llrs_from_noise
 from tpu_ldpc_torch.codes_device import resolve_device
 from tpu_ldpc_torch.decode.api import build_decode_fn
@@ -39,10 +39,15 @@ class DecodeCfg:
     iters: int = 50
     alpha: float = 0.75
     beta: float = 0.0
-    schedule: str = "flooding"  # only 'flooding' is ported
-    impl: str = "auto"          # 'auto' | 'torch' | 'cuda'
+    schedule: str = "flooding"  # 'flooding' | 'layered'
+    impl: str = "auto"          # 'auto' | 'torch' | 'cuda' | 'twophase'
     # fixed-point emulation mode: not ported (ROADMAP Queue 2 K5), raises
     quant_bits: int | None = None
+    # impl='twophase' only (decode/twophase.py): phase-1 iteration budget
+    # K and the compacted phase-2 batch size.  None resolves them from the
+    # knob table or the code rate (decode/knobs.py); explicit values win.
+    phase1_iters: int | None = None
+    compact_budget: int | None = None
 
 
 COUNTER_FIELDS = (
