@@ -5,12 +5,15 @@
 
 Builds the CUDA decode kernels from tpu_ldpc_torch/csrc with nvcc (one
 nvcc per source, in parallel), holds each against its plain PyTorch
-version on the card (min-sum bit for bit, exact sum-product frame by
-frame), drives the port's main paths on the judged (1024, 512) code
-through the public entry points -- slice 1: flooding min-sum decode(),
-run_ber and the sweep CLI; slice 2: layered min-sum, exact sum-product
-and two-phase decoding through decode(), run_ber and the CLI -- times
-kernels and plain versions with CUDA events, and prints:
+version on the card (min-sum, sumproduct-fast and fixed-point min-sum bit
+for bit, exact sum-product frame by frame), drives the port's main paths
+on the judged (1024, 512) code through the public entry points -- slice
+1: flooding min-sum decode(), run_ber and the sweep CLI; slice 2: layered
+min-sum, exact sum-product and two-phase decoding through decode(),
+run_ber and the CLI; slice 3: sumproduct-fast and fixed-point min-sum
+through decode(), two-phase, run_ber against the frozen quantized rows
+and the CLI's Eb/N0-at-FER search -- times kernels and plain versions
+with CUDA events, and prints:
 
   - one line per phase;
   - the card's name and power limit (nvidia-smi);
@@ -54,6 +57,22 @@ FROZEN_CI_2DB = {
     "sumproduct flooding 50": (2.999297e-03, 3.894854e-03),
 }
 TPU_SP_ROW_2DB = (4.074653e-03, 5.108183e-03)
+# fixed-point min-sum (flooding, 50 it) at 2.0 dB: (frame errors, frames)
+# of the frozen rows of artifacts/judged_quant_minsum50.csv (the JAX
+# package's jnp reference on the CPU); run_ber's Wilson interval over
+# `frames` frames must overlap the row's
+QUANT_ROWS_2DB = {  # label: (quant_bits, quant_step, errors, frames, run)
+    "q6_s0.25": (6, 0.25, 63, 4096, 65536),
+    "q4_s0.5": (4, 0.5, 226, 512, 16384),
+}
+# Eb/N0 at FER 1e-2 (judged, flooding, 50 it) from
+# artifacts/spfast_vs_sp_fer.json (jnp on the CPU, sim/search.py):
+# sumproduct-fast must land within SPFAST_BAND_DB of its value; min-sum's
+# lies outside that band
+SPFAST_AT_FER_DB = 1.8770
+SP_AT_FER_DB = 1.8418
+MINSUM_AT_FER_DB = 2.0293
+SPFAST_BAND_DB = 0.08
 # exact sum-product, kernel against plain version on the same card: the
 # share of frames whose bits, ok and iters_used all agree.  Both agreed on
 # every frame at 2.0 dB on an H100; 0.999 leaves room for a rounding
@@ -67,21 +86,49 @@ SP_EBN0 = (2.0, 1.0)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # floating-point operations per edge and iteration that the algorithm
-# needs, counting tanh and log as one operation each: min-sum q = p - R,
-# |q|, the min compare, max(m - beta, 0), alpha *, sign *, the VN add;
-# sum-product q, |q|, phi (clip 2, * 0.5, tanh, log, negate) twice, the
-# phi sum, tot - phi_e, two sign products, the VN add
-OPS_PER_EDGE_ITER = {"minsum": 7, "sumproduct": 19}
-# (name, algo, schedule, main-path iterations, TPU kernel it replaces)
+# needs, counting tanh and log as one operation each, one compare for a
+# scan that tests its largest kept value first, and sign and index
+# selects as free: min-sum q = p - R, |q|, the min compare,
+# max(m - beta, 0), alpha *, sign *, the VN add; sum-product q, |q|, phi
+# (clip 2, * 0.5, tanh, log, negate) twice, the phi sum, tot - phi_e, two
+# sign products, the VN add; sumproduct-fast q, |q|, the compare of the
+# three-smallest scan, sign *, the VN add, plus per check row three
+# f-pairs of 25 each (a + b, a - b, |.|, two ctilde of 3 products, 3
+# differences and 3 maxima, the min, d1 - d2, the add, the max);
+# fixed-point min-sum adds to min-sum the message clip (2) and the output
+# quantizer on the magnitude (/ step, + 0.5, floor, min, * step, the zero
+# select: 6), the sign already counted.  The channel quantizer and the
+# posterior clip, per variable, are left out.
+OPS_PER_EDGE_ITER = {"minsum": 7, "sumproduct": 19, "sumproduct-fast": 5,
+                     "minsum-quant": 15}
+OPS_PER_ROW_ITER = {"sumproduct-fast": 75}
+Q6 = {"quant_bits": 6, "quant_step": 0.25}
+# (name, algo, schedule, main-path iterations, source, TPU kernel it
+# replaces, quantization of the timed and main-path runs)
 KERNELS = (
     ("minsum_flood", "minsum", "flooding", 50, "tpu_ldpc_torch/csrc/bp_flood.cu",
-     "tpu_ldpc/decode/pallas_bp.py:514"),
+     "tpu_ldpc/decode/pallas_bp.py:514", {}),
     ("minsum_layered", "minsum", "layered", 25,
-     "tpu_ldpc_torch/csrc/bp_layered.cu", "tpu_ldpc/decode/pallas_bp.py:609"),
+     "tpu_ldpc_torch/csrc/bp_layered.cu", "tpu_ldpc/decode/pallas_bp.py:609",
+     {}),
     ("sumproduct_flood", "sumproduct", "flooding", 50,
-     "tpu_ldpc_torch/csrc/bp_flood.cu", "tpu_ldpc/decode/pallas_bp.py:306"),
+     "tpu_ldpc_torch/csrc/bp_flood.cu", "tpu_ldpc/decode/pallas_bp.py:306",
+     {}),
     ("sumproduct_layered", "sumproduct", "layered", 25,
-     "tpu_ldpc_torch/csrc/bp_layered.cu", "tpu_ldpc/decode/pallas_bp.py:306"),
+     "tpu_ldpc_torch/csrc/bp_layered.cu", "tpu_ldpc/decode/pallas_bp.py:306",
+     {}),
+    ("spfast_flood", "sumproduct-fast", "flooding", 50,
+     "tpu_ldpc_torch/csrc/bp_flood.cu", "tpu_ldpc/decode/pallas_bp.py:259",
+     {}),
+    ("spfast_layered", "sumproduct-fast", "layered", 25,
+     "tpu_ldpc_torch/csrc/bp_layered.cu", "tpu_ldpc/decode/pallas_bp.py:259",
+     {}),
+    ("minsum_quant_flood", "minsum", "flooding", 50,
+     "tpu_ldpc_torch/csrc/bp_flood.cu", "tpu_ldpc/decode/pallas_bp.py:459",
+     Q6),
+    ("minsum_quant_layered", "minsum", "layered", 25,
+     "tpu_ldpc_torch/csrc/bp_layered.cu", "tpu_ldpc/decode/pallas_bp.py:459",
+     Q6),
 )
 
 
@@ -152,35 +199,40 @@ def _diff(got, want):
     return err, float(same.double().mean())
 
 
-def _bound_ms(code, batch, algo, iters_executed):
+def _bound_ms(code, batch, kind, iters_executed):
     """The least time of one decode: device-memory bytes (LLRs in, bits,
     ok and iters_used out, each once) over 3.35 TB/s, or the operations
     the codewords' iterations need over 67 TFLOP/s, whichever is larger.
-    Returns (ms, 'bytes' or 'operations')."""
+    kind: a key of OPS_PER_EDGE_ITER.  Returns (ms, 'bytes' or
+    'operations')."""
     nbytes = batch * code.n * 4 + batch * code.n + batch + batch * 4
-    ops = (OPS_PER_EDGE_ITER[algo] * code.layout.E * code.Z
+    ops = ((OPS_PER_EDGE_ITER[kind] * code.layout.E * code.Z
+            + OPS_PER_ROW_ITER.get(kind, 0) * code.m)
            * float(iters_executed))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def _run_ber_check(run_ber, code, cfg, label, seed):
-    """run_ber over 65,536 frames at 2.0 dB; its Wilson interval must
-    overlap the frozen row's."""
+def _run_ber_check(run_ber, code, cfg, label, seed, frames=65536, ref=None):
+    """run_ber over `frames` frames at 2.0 dB; its Wilson interval must
+    overlap the frozen row's (`ref`, else FROZEN_CI_2DB[label])."""
     t0 = time.perf_counter()
-    res = run_ber(code, [2.0], cfg, batch=BATCH, target_frame_errors=10**9,
-                  max_frames=65536, seed=seed, device="cuda")[0]
+    # run_ber syncs every 8 batches on the card: 8 batches make `frames`
+    res = run_ber(code, [2.0], cfg, batch=min(BATCH, frames // 8),
+                  target_frame_errors=10**9, max_frames=frames, seed=seed,
+                  device="cuda")[0]
     wall = time.perf_counter() - t0
     lo, hi = _wilson_interval(res.frame_errors, res.frames)
-    ref = FROZEN_CI_2DB[label]
+    ref = FROZEN_CI_2DB[label] if ref is None else ref
     print(f"[4 run_ber] judged {label} 2.0 dB frames={res.frames} "
           f"frame_errors={res.frame_errors} FER={res.fer:.4e} "
           f"CI95=[{lo:.4e}, {hi:.4e}] reference={ref} "
           f"mean_iters={res.mean_iters:.3f} undetected={res.undetected} "
           f"wall={wall:.2f} s")
-    if res.frames != 65536:
-        raise AssertionError(f"run_ber ran {res.frames} frames, not 65536")
+    if res.frames != frames:
+        raise AssertionError(f"run_ber ran {res.frames} frames, not "
+                             f"{frames}")
     if label.startswith("sumproduct"):
         print(f"[4 run_ber] {label}: the TPU row of "
               f"artifacts/judged_sumproduct50.csv is {TPU_SP_ROW_2DB}; "
@@ -203,12 +255,13 @@ def main() -> int:
     from tpu_ldpc_torch.cli import sim as cli_sim
     from tpu_ldpc_torch.decode import decode
     from tpu_ldpc_torch.decode.cuda_bp import WRAPPERS
+    from tpu_ldpc_torch.decode.knobs import resolve_twophase_knobs
     from tpu_ldpc_torch.decode.reference import build_decoder
     from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
     from tpu_ldpc_torch.sim.mc import DecodeCfg, build_mc_step, run_ber
 
-    wrappers = {name: WRAPPERS[(algo, sched)]
-                for name, algo, sched, *_ in KERNELS}
+    wrappers = {name: WRAPPERS[(algo, sched, bool(quant))]
+                for name, algo, sched, _, _, _, quant in KERNELS}
 
     # ---- 1. device --------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -239,6 +292,7 @@ def main() -> int:
                 print(f"[2 build] {src} ptxas: {line.strip()}")
 
     # ---- 3. kernels vs plain versions on the card --------------------------
+    t_phase = time.perf_counter()
     judged = LdpcCode.judged()
     min_sum_cases = [  # (code, Eb/N0 in its waterfall, batches)
         (judged, 2.0, (4096, 4097)),
@@ -273,7 +327,7 @@ def main() -> int:
     for si, ebn0 in enumerate(SP_EBN0):
         sp_llr = torch.from_numpy(
             _noisy_llrs(judged, BATCH, ebn0, SEED + 5 + si)).to(dev)
-        for kname, algo, sched, iters, *_ in KERNELS[2:]:  # sum-product
+        for kname, algo, sched, iters, *_ in KERNELS[2:4]:  # sum-product
             for et in (True, False):
                 got = wrappers[kname](judged, sp_llr, iters, early_stop=et)
                 want = build_decoder(judged, algo, iters, schedule=sched,
@@ -281,8 +335,8 @@ def main() -> int:
                 err, share = _diff(got, want)
                 max_abs_err[kname] = max(max_abs_err[kname], err)
                 agreement[kname] = min(agreement[kname], share)
-                ms = WRAPPERS[("minsum", sched)](judged, sp_llr, iters,
-                                                 early_stop=et)
+                ms = WRAPPERS[("minsum", sched, False)](judged, sp_llr, iters,
+                                                        early_stop=et)
                 _, ms_share = _diff(ms, want)
                 print(f"[3 kernel~plain] {kname} judged {ebn0} dB b={BATCH} "
                       f"et={et}: frame agreement {share:.6f} (>= "
@@ -297,6 +351,52 @@ def main() -> int:
                     raise AssertionError(f"{kname} {ebn0} dB et={et}: the "
                                          f"check passes min-sum "
                                          f"({ms_share})")
+
+    # sumproduct-fast and fixed-point min-sum: bit-exact, both schedules; the
+    # 4-bit grid has a control: the float min-sum kernel on the same LLRs
+    # must not match the quantized plain version
+    bases = {code.name: _noisy_llrs(code, BATCH, ebn0, SEED + ci)
+             for ci, (code, ebn0, _) in enumerate(min_sum_cases)}
+    for kname, algo, sched, iters, *_ in KERNELS[4:]:
+        quants = ([Q6, {"quant_bits": 4, "quant_step": 0.5}]
+                  if "quant" in kname else [{}])
+        for q in quants:
+            for code, ebn0, _ in min_sum_cases:
+                base = bases[code.name]
+                for label, llr_np in ((f"{ebn0} dB b={BATCH}", base),
+                                      ("+-0.0/1e4 b=1024",
+                                       _special_llrs(base[:1024], SEED))):
+                    llr = torch.from_numpy(
+                        np.ascontiguousarray(llr_np)).to(dev)
+                    for et in (True, False):
+                        got = wrappers[kname](code, llr, iters, 0.75, 0.0,
+                                              et, **q)
+                        want = build_decoder(code, algo, iters, 0.75, 0.0,
+                                             sched, et, **q)(llr)
+                        torch.cuda.synchronize()
+                        err, _ = _diff(got, want)
+                        max_abs_err[kname] = max(max_abs_err[kname], err)
+                        what = (f"{kname} {q or ''} {code.name} {label} "
+                                f"et={et}")
+                        if err:
+                            raise AssertionError(f"{what}: kernel != plain "
+                                                 f"(max |diff| {err})")
+                        control = ""
+                        if q.get("quant_bits") == 4:
+                            fl = WRAPPERS[("minsum", sched, False)](
+                                code, llr, iters, 0.75, 0.0, et)
+                            c_err, c_share = _diff(fl, want)
+                            if not c_err:
+                                raise AssertionError(
+                                    f"{what}: the float min-sum kernel "
+                                    "matches the 4-bit plain version")
+                            control = (f"; control: float min-sum agrees on "
+                                       f"{c_share:.6f} of frames")
+                        print(f"[3 kernel==plain] {what}: bit-exact, "
+                              f"ok={float(got[1].float().mean()):.4f} "
+                              f"mean_iters="
+                              f"{float(got[2].double().mean()):.3f}{control}")
+    print(f"[3] wall {time.perf_counter() - t_phase:.2f} s")
 
     # ---- 4. main paths (counts set to 0 before each, read after) ----------
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -406,14 +506,93 @@ def main() -> int:
         print(f"[4 cli] layered twophase: wrote {csv}: frames={row[1]} "
               f"FER={row[7]}")
 
+    def slice3_path():
+        """sumproduct-fast and fixed-point min-sum: decode() on both
+        schedules, two-phase, run_ber against the frozen quantized rows,
+        the CLI's Eb/N0-at-FER search."""
+        for kw in (dict(algo="sumproduct-fast"),
+                   dict(algo="sumproduct-fast", schedule="layered", iters=25),
+                   dict(Q6),
+                   dict(Q6, schedule="layered", iters=25)):
+            out = decode(judged, llr, **kw)
+            torch.cuda.synchronize()
+            check_decode_outputs(out, f"decode({kw})")
+            plain = decode(judged, llr[:256].cpu(), **kw)
+            err, _ = _diff([x[:256].cpu() for x in out], plain)
+            if err:
+                raise AssertionError(f"decode({kw}) on the card != on the "
+                                     "CPU (256 rows)")
+            print(f"[4 decode] judged {kw} b={BATCH} "
+                  f"ok={float(out[1].float().mean()):.4f} "
+                  f"mean_iters={float(out[2].double().mean()):.3f}: "
+                  "bit-exact with decode(device='cpu') on 256 rows")
+        single = decode(judged, llr, quant_bits=5)
+        out = decode(judged, llr, quant_bits=5, impl="twophase")
+        if _diff(out, single)[0]:
+            raise AssertionError("decode(impl='twophase', quant_bits=5) != "
+                                 "single-pass ET")
+        # the table's knobs, then a budget that holds every straggler
+        k, b, _ = resolve_twophase_knobs(judged, "flooding", None, None)
+        for budget in (b, 2 * b):
+            fn = build_twophase_decoder(judged, 50, k, budget,
+                                        report_fallback=True, quant_bits=5)
+            *got, n_unconv = fn(llr)
+            if _diff(got, single)[0]:
+                raise AssertionError("quantized two-phase != single-pass ET")
+            print(f"[4 twophase] judged flooding 50 it quant_bits=5 K={k} "
+                  f"budget={budget} b={BATCH} 2.0 dB: bit-identical to "
+                  f"single-pass ET, n_unconv={n_unconv} ("
+                  f"{'compacted' if n_unconv <= budget else 'full batch'})")
+        for si, (label, (bits, step, errs, frames, run)) in enumerate(
+                QUANT_ROWS_2DB.items()):
+            _run_ber_check(run_ber, judged,
+                           DecodeCfg(quant_bits=bits, quant_step=step),
+                           f"minsum {label} flooding 50", 3 + si, frames=run,
+                           ref=_wilson_interval(errs, frames))
+        # the search alone must run K4 and not K3: its counts are read
+        # apart, then added back to the path's
+        before = {kname: w.launches for kname, w in wrappers.items()}
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        sr = cli_sim.main(["--family", "judged", "--algo", "sumproduct-fast",
+                           "--find-fer", "1e-2", "--ebn0", "1.5", "2.5",
+                           "--target-fe", "120", "--batch", str(BATCH),
+                           "--device", "cuda"])
+        torch.cuda.synchronize()
+        search = {kname: w.launches for kname, w in wrappers.items()}
+        for kname, w in wrappers.items():
+            w.launches += before[kname]
+        print(f"[4 find-fer] launches of the search alone: {search}")
+        if search["spfast_flood"] < 1 or any(
+                n for kname, n in search.items() if kname != "spfast_flood"):
+            raise AssertionError(f"find-fer for sumproduct-fast launched "
+                                 f"{search}, not spfast_flood alone")
+        print(f"[4 find-fer] judged sumproduct-fast flooding 50 it: Eb/N0 at "
+              f"FER 1e-2 {sr.ebn0_db:.4f} dB, bracket "
+              f"[{sr.bracket[0]:.4f}, {sr.bracket[1]:.4f}], "
+              f"{len(sr.probes)} probes, "
+              f"{sum(p.frames for p in sr.probes)} frames, wall "
+              f"{time.perf_counter() - t0:.2f} s; frozen (jnp, CPU): "
+              f"sumproduct-fast {SPFAST_AT_FER_DB}, sumproduct "
+              f"{SP_AT_FER_DB}, min-sum {MINSUM_AT_FER_DB}")
+        if not (sr.converged
+                and abs(sr.ebn0_db - SPFAST_AT_FER_DB) <= SPFAST_BAND_DB):
+            raise AssertionError(
+                f"find-fer: {sr.ebn0_db} dB (converged {sr.converged}) is "
+                f"not within {SPFAST_BAND_DB} dB of {SPFAST_AT_FER_DB}")
+
     for label, path, own in (("slice 1", slice1_path, KERNELS[:1]),
-                             ("slice 2", slice2_path, KERNELS[1:])):
+                             ("slice 2", slice2_path, KERNELS[1:4]),
+                             ("slice 3", slice3_path, KERNELS[4:])):
+        t_phase = time.perf_counter()
         for w in wrappers.values():
             w.launches = 0
         path()
         torch.cuda.synchronize()
         counts = {kname: w.launches for kname, w in wrappers.items()}
-        print(f"[4 main path] {label}: launches {counts}")
+        print(f"[4 main path] {label}: launches {counts}, wall "
+              f"{time.perf_counter() - t_phase:.2f} s")
         for kname, *_ in own:
             if counts[kname] < 1:
                 raise AssertionError(f"{label} launched {kname} no time")
@@ -421,18 +600,22 @@ def main() -> int:
             launches[kname] += counts[kname]
 
     # ---- 5. times (CUDA events, after warm-up) ----------------------------
+    t_phase = time.perf_counter()
     info_bits = BATCH * judged.k
     results = []
-    for kname, algo, sched, iters, source, replaces in KERNELS:
+    k_times = {}
+    for kname, algo, sched, iters, source, replaces, quant in KERNELS:
         wrapper = wrappers[kname]
+        kind = "minsum-quant" if quant else algo
         plain_off = build_decoder(judged, algo, iters, 0.75, 0.0, sched,
-                                  False)
+                                  False, **quant)
 
         def kernel_off():
-            wrapper(judged, llr, iters, 0.75, 0.0, early_stop=False)
+            wrapper(judged, llr, iters, 0.75, 0.0, early_stop=False, **quant)
 
         def kernel_on():
-            return wrapper(judged, llr, iters, 0.75, 0.0, early_stop=True)
+            return wrapper(judged, llr, iters, 0.75, 0.0, early_stop=True,
+                           **quant)
 
         def plain():
             plain_off(llr)
@@ -449,15 +632,18 @@ def main() -> int:
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
         _, ok_on, iu_on = kernel_on()
         iters_on = float(iu_on.double().sum())
-        bound_off, by_off = _bound_ms(judged, BATCH, algo, BATCH * iters)
-        bound_on, by_on = _bound_ms(judged, BATCH, algo, iters_on)
-        print(f"[5 time] {kname} judged b={BATCH} {iters} it ET off: kernel "
+        bound_off, by_off = _bound_ms(judged, BATCH, kind, BATCH * iters)
+        bound_on, by_on = _bound_ms(judged, BATCH, kind, iters_on)
+        k_times[kname] = (k_ms, k_on)
+        print(f"[5 time] {kname} {quant or ''} judged b={BATCH} {iters} it "
+              f"ET off: kernel "
               f"{k_ms:.4f} ms/batch ({k1:.4f}, {k2:.4f}) = "
               f"{k_ms / iters:.5f} ms/iteration = "
               f"{info_bits / k_ms * 1e3:.4e} info bit/s; plain {p_ms:.4f} "
               f"ms/batch ({p1:.4f}, {p2:.4f}); bound {bound_off:.5f} ms "
               f"({by_off})")
-        print(f"[5 time] {kname} judged b={BATCH} 2.0 dB ET on (mean iters "
+        print(f"[5 time] {kname} {quant or ''} judged b={BATCH} 2.0 dB ET on "
+              f"(mean iters "
               f"{iters_on / BATCH:.3f}): kernel {k_on:.4f} ms/batch = "
               f"{info_bits / k_on * 1e3:.4e} info bit/s; bound "
               f"{bound_on:.5f} ms ({by_on})")
@@ -471,6 +657,17 @@ def main() -> int:
         if algo == "sumproduct":
             entry["frame_agreement"] = agreement[kname]
         results.append(entry)
+
+    for new, old in (("minsum_quant_flood", "minsum_flood"),
+                     ("minsum_quant_layered", "minsum_layered"),
+                     ("spfast_flood", "sumproduct_flood"),
+                     ("spfast_layered", "sumproduct_layered"),
+                     ("spfast_flood", "minsum_flood"),
+                     ("spfast_layered", "minsum_layered")):
+        (n_off, n_on), (o_off, o_on) = k_times[new], k_times[old]
+        print(f"[5 time] {new} / {old}, same iterations: ET off "
+              f"{n_off / o_off:.4f}x ({n_off:.4f} / {o_off:.4f} ms), ET on "
+              f"{n_on / o_on:.4f}x ({n_on:.4f} / {o_on:.4f} ms)")
 
     layered = wrappers["minsum_layered"]
     fn = build_twophase_decoder(judged, 25, 9, 768, schedule="layered")
@@ -502,6 +699,8 @@ def main() -> int:
     print(f"[5 time] MC step judged b={BATCH} 2.0 dB (draw, encode, channel, "
           f"decode ET on, counters): {step_ms:.4f} ms host clock "
           f"= {info_bits / step_ms * 1e3:.4e} info bit/s")
+
+    print(f"[5] wall {time.perf_counter() - t_phase:.2f} s")
 
     if "jax" in sys.modules or "tpu_ldpc" in sys.modules:
         raise AssertionError("JAX or the JAX package was imported")

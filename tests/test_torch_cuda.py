@@ -1,7 +1,8 @@
 """The CUDA decode kernels on the card against the plain PyTorch version
-and the golden model: K1 (flooding min-sum) and K2 (layered min-sum)
-bit-exact with golden float32, K3 (exact sum-product, both schedules)
-frame by frame, and two-phase decoding bit-identical to single-pass ET.
+and the golden model: K1 (flooding min-sum), K2 (layered min-sum), K4
+(sumproduct-fast) and K5 (fixed-point min-sum), both schedules, bit-exact
+with golden float32, K3 (exact sum-product, both schedules) frame by
+frame, and two-phase decoding bit-identical to single-pass ET.
 
 Marked `cuda`; each test skips without a CUDA device.  The file imports
 no JAX (only the JAX package's NumPy golden model and code registry), so
@@ -29,6 +30,7 @@ pytestmark = pytest.mark.cuda
 
 CODES = [("judged", "1/2", 64, 2.0), ("wifi", "2/3", 27, 2.0),
          ("wimax", "5/6", 96, 3.0)]
+GOLDEN_ROWS = 48  # rows of special_llrs (the +-0.0 and 1e4 rows first)
 
 
 @pytest.fixture()
@@ -122,11 +124,117 @@ def test_layered_kernel_bitexact_vs_plain_and_golden(cuda, family, rate, Z,
 
 
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("family,rate,Z,ebn0", CODES)
+def test_spfast_kernels_bitexact_vs_plain_and_golden(cuda, family, rate, Z,
+                                                     ebn0, schedule):
+    """K4, ET on and off, +-0.0 and 1e4 LLRs included."""
+    ref, code = codes(family, rate, Z)
+    llr_np = special_llrs(code, ebn0)
+    llr = torch.from_numpy(llr_np).to(cuda)
+    wrapper = WRAPPERS[("sumproduct-fast", schedule, False)]
+    iters = 50 if schedule == "flooding" else 25
+    for early_stop in (True, False):
+        before = wrapper.launches
+        got = wrapper(code, llr, iters, early_stop=early_stop)
+        assert wrapper.launches == before + 1
+        want = build_decoder(code, "sumproduct-fast", iters,
+                             schedule=schedule, early_stop=early_stop)(llr)
+        assert_same(got, want)
+        # golden's per-frame loops are slow: its share is the first rows
+        assert_same([x[:GOLDEN_ROWS] for x in got], golden_decode(
+            ref.H, llr_np[:GOLDEN_ROWS], algo="sumproduct-fast",
+            iters=iters, schedule=schedule, dtype=np.float32,
+            early_stop=early_stop))
+
+
+def test_spfast_kernels_on_low_degree_rows(cuda):
+    """Rows of degree 1, 2, 3 and 4 (a hand-made base graph, random
+    LLRs): the degree-1 and degree-2 branches of the CN update."""
+    B = np.array([[0, -1, -1, -1, -1, -1], [1, 2, -1, -1, -1, -1],
+                  [-1, 3, 0, 5, -1, -1], [2, -1, 1, -1, 4, 0]])
+    ref = JaxLdpcCode.from_base_graph(B, 7, "lowdeg")
+    code = LdpcCode.from_base_graph(B, 7, "lowdeg")
+    rng = np.random.default_rng(3)
+    llr_np = (rng.normal(0.8, 2.0, (300, code.n)) * 2).astype(np.float32)
+    llr = torch.from_numpy(llr_np).to(cuda)
+    for schedule in ("flooding", "layered"):
+        for early_stop in (True, False):
+            got = WRAPPERS[("sumproduct-fast", schedule, False)](
+                code, llr, 10, early_stop=early_stop)
+            assert_same(got, build_decoder(code, "sumproduct-fast", 10,
+                                           schedule=schedule,
+                                           early_stop=early_stop)(llr))
+            assert_same(got, golden_decode(
+                ref.H, llr_np, algo="sumproduct-fast", iters=10,
+                schedule=schedule, dtype=np.float32, early_stop=early_stop))
+
+
+@pytest.mark.parametrize("bits,step", [(6, 0.25), (4, 0.5)])
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("family,rate,Z,ebn0", CODES)
+def test_quant_kernels_bitexact_vs_plain_and_golden(cuda, family, rate, Z,
+                                                    ebn0, schedule, bits,
+                                                    step):
+    """K5, ET on and off, +-0.0 and 1e4 LLRs included."""
+    ref, code = codes(family, rate, Z)
+    llr_np = special_llrs(code, ebn0)
+    llr = torch.from_numpy(llr_np).to(cuda)
+    wrapper = WRAPPERS[("minsum", schedule, True)]
+    iters = 50 if schedule == "flooding" else 25
+    q = dict(quant_bits=bits, quant_step=step)
+    for early_stop in (True, False):
+        before = wrapper.launches
+        got = wrapper(code, llr, iters, 0.75, 0.0, early_stop, **q)
+        assert wrapper.launches == before + 1
+        want = build_decoder(code, "minsum", iters, 0.75, 0.0, schedule,
+                             early_stop, **q)(llr)
+        assert_same(got, want)
+        assert_same([x[:GOLDEN_ROWS] for x in got], golden_decode(
+            ref.H, llr_np[:GOLDEN_ROWS], algo="minsum", iters=iters,
+            alpha=0.75, schedule=schedule, dtype=np.float32,
+            early_stop=early_stop, **q))
+
+
+def test_quant_kernel_refuses_other_algos(cuda):
+    """The C entry point returns cudaErrorInvalidValue for quantization
+    with a CN other than min-sum; the Python entry points raise first."""
+    from tpu_ldpc_torch._build import load_library
+    from tpu_ldpc_torch.codes_device import to_device
+    from tpu_ldpc_torch.decode.cuda_bp import (
+        _decode, minsum_quant_layered, wrapper_for)
+
+    _, code = codes("judged", "1/2", 64)
+    llr = torch.zeros((4, code.n), device=cuda)
+    with pytest.raises(ValueError, match="minsum"):
+        decode(code, llr, algo="sumproduct-fast", schedule="layered",
+               quant_bits=6)
+    with pytest.raises(ValueError, match="quant_bits=6"):
+        wrapper_for("sumproduct-fast", "layered", quant_bits=6)
+    launches = minsum_quant_layered.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _decode(minsum_quant_layered, "sumproduct-fast", "layered", code,
+                llr, 5, 0.75, 0.0, True, (6, 0.25, 8))
+    assert minsum_quant_layered.launches == launches
+    lib = load_library("bp_layered")
+    dc = to_device(code, cuda)
+    out = torch.empty((4, code.n), dtype=torch.uint8, device=cuda)
+    ok = torch.empty(4, dtype=torch.bool, device=cuda)
+    iu = torch.empty(4, dtype=torch.int32, device=cuda)
+    err = lib.ldpc_bp_layered(
+        2, llr.data_ptr(), out.data_ptr(), ok.data_ptr(), iu.data_ptr(),
+        dc.edge_col.data_ptr(), dc.edge_shift.data_ptr(),
+        dc.row_ptr.data_ptr(), 4, code.Z, code.mb, code.nb, dc.E, 5, 0.75,
+        0.0, 1, 1, 0.25, 31.0, 7.75, 31.75,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+
+
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
 def test_sumproduct_kernels_agree_with_plain_and_golden(cuda, schedule):
     ref, code = codes("judged", "1/2", 64)
     llr_np = noisy_llrs(code, 257, 1.75, seed=22)
     llr = torch.from_numpy(llr_np).to(cuda)
-    wrapper = WRAPPERS[("sumproduct", schedule)]
+    wrapper = WRAPPERS[("sumproduct", schedule, False)]
     before = wrapper.launches
     got = wrapper(code, llr, 30)
     assert wrapper.launches == before + 1
@@ -152,11 +260,26 @@ def test_sumproduct_kernels_on_extreme_llrs(cuda, schedule):
         np.asarray([0.0 if i % 3 else 1e-30 for i in range(n)], np.float32),
     ])).to(cuda)
     for early_stop in (True, False):
-        got = WRAPPERS[("sumproduct", schedule)](code, llr, 8,
+        got = WRAPPERS[("sumproduct", schedule, False)](code, llr, 8,
                                                  early_stop=early_stop)
         want = build_decoder(code, "sumproduct", 8, schedule=schedule,
                              early_stop=early_stop)(llr)
         assert_same(got, want)
+
+
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+def test_quant_and_spfast_twophase_on_card(cuda, schedule):
+    """Two-phase with quantization and with sumproduct-fast on the card:
+    bit-identical to single-pass ET."""
+    _, code = codes("judged", "1/2", 64)
+    llr = torch.from_numpy(noisy_llrs(code, 1024, 2.0, seed=24)).to(cuda)
+    iters, k = (50, 20) if schedule == "flooding" else (25, 9)
+    for kw in (dict(quant_bits=5), dict(algo="sumproduct-fast")):
+        single = decode(code, llr, schedule=schedule, iters=iters, **kw)
+        got = decode(code, llr, schedule=schedule, iters=iters,
+                     impl="twophase", phase1_iters=k, compact_budget=512,
+                     **kw)
+        assert_same(got, single)
 
 
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
@@ -177,14 +300,16 @@ def test_decode_api_launches_the_kernel_and_checks_inputs(cuda):
     _, code = codes("judged", "1/2", 64)
     llr = torch.from_numpy(noisy_llrs(code, 64, 2.0, seed=3)).to(cuda)
     current = torch.cuda.current_device()
-    for (algo, schedule), wrapper in WRAPPERS.items():
+    for (algo, schedule, quantized), wrapper in WRAPPERS.items():
+        quant = dict(quant_bits=5) if quantized else {}
         before = wrapper.launches
-        got = decode(code, llr, algo=algo, schedule=schedule, iters=20)
+        got = decode(code, llr, algo=algo, schedule=schedule, iters=20,
+                     **quant)
         assert wrapper.launches == before + 1
         assert torch.cuda.current_device() == current
         want = decode(code, llr, algo=algo, schedule=schedule, iters=20,
-                      impl="torch")
-        if algo == "minsum":
+                      impl="torch", **quant)
+        if algo != "sumproduct":
             assert_same(got, want)
         else:
             assert frame_agreement(got, want) >= 0.99

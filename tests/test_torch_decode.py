@@ -173,13 +173,15 @@ def test_decode_api_dispatches_by_device():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(schedule="windowed"), "Queue 1 item 7"),
-    (dict(algo="bitflip"), "Queue 1 item 7"),
-    (dict(algo="sumproduct-fast"), "K4"),
-    (dict(quant_bits=6), "K5"),
-    (dict(impl="pallas"), "Queue 2"),
-    (dict(impl="jnp"), "Queue 1 item 1"),
-    (dict(algo="wbf"), "Queue 1 item 7"),
+    pytest.param(dict(schedule="windowed"), "Queue 1 item 7",
+                 id="kw0-Queue 1 item 7"),
+    pytest.param(dict(algo="bitflip"), "Queue 1 item 7",
+                 id="kw1-Queue 1 item 7"),
+    pytest.param(dict(impl="pallas"), "Queue 2", id="kw4-Queue 2"),
+    pytest.param(dict(impl="jnp"), "Queue 1 item 1",
+                 id="kw5-Queue 1 item 1"),
+    pytest.param(dict(algo="wbf"), "Queue 1 item 7",
+                 id="kw6-Queue 1 item 7"),
 ])
 def test_unported_decoder_modes_raise(kw, item):
     code = toy_code()
@@ -191,20 +193,25 @@ def test_unported_decoder_modes_raise(kw, item):
     dict(schedule="layered"),
     dict(algo="sumproduct"),
     dict(impl="twophase", phase1_iters=4, compact_budget=16),
-], ids=["layered", "sumproduct", "twophase"])
+    dict(algo="sumproduct-fast"),
+    dict(quant_bits=6),
+], ids=["layered", "sumproduct", "twophase", "sumproduct-fast", "quant"])
 def test_ported_decoder_modes_run(kw):
-    """The modes slice 2 ported (they raised in slice 1) decode NumPy
-    input on the CPU like the JAX package's decode()."""
+    """The modes slices 2 and 3 ported (they raised before) decode NumPy
+    input on the CPU like the JAX package's decode(); min-sum (float or
+    quantized) and sumproduct-fast bit for bit with golden float32."""
     code = toy_code()
     llr = noisy_llrs(code, 24, 2.5, seed=15)
     got = [x.numpy() for x in decode(code, llr, iters=20, device="cpu",
                                      **kw)]
     schedule = kw.get("schedule", "flooding")
     algo = kw.get("algo", "minsum")
+    exact = algo != "sumproduct"
     want = golden_decode(code.H, llr, algo=algo, iters=20, alpha=0.75,
                          schedule=schedule,
-                         dtype=np.float32 if algo == "minsum" else np.float64)
-    if algo == "minsum":
+                         quant_bits=kw.get("quant_bits"),
+                         dtype=np.float32 if exact else np.float64)
+    if exact:
         assert_same(got, want)
     else:
         assert (got[0] == want[0]).all(axis=1).mean() >= 0.97

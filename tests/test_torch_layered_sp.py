@@ -233,17 +233,20 @@ def test_sumproduct_saturated_phi_is_negative_zero():
     assert [bool(o < 0) for o in outs] == [True, False, True]
 
 
-@pytest.mark.parametrize("algo,schedule", sorted(WRAPPERS))
-def test_wrappers_run_the_plain_version_on_cpu(algo, schedule):
+@pytest.mark.parametrize("algo,schedule,quantized", [
+    pytest.param(*key, id="-".join(key[:2]) + ("-quant" if key[2] else ""))
+    for key in sorted(WRAPPERS)])
+def test_wrappers_run_the_plain_version_on_cpu(algo, schedule, quantized):
     """Each kernel wrapper, given a CPU tensor, returns its plain
     version's result and launches nothing."""
     _, code = toy_codes()
     llr = torch.from_numpy(noisy_llrs(code, 12, 2.5, seed=14))
-    wrapper = WRAPPERS[(algo, schedule)]
+    wrapper = WRAPPERS[(algo, schedule, quantized)]
+    quant = dict(quant_bits=5, quant_step=0.5) if quantized else {}
     before = wrapper.launches
-    got = wrapper(code, llr, 10, 0.75, 0.0)
-    want = build_decoder(code, algo, 10, 0.75, 0.0, schedule)(llr)
+    got = wrapper(code, llr, 10, 0.75, 0.0, **quant)
+    want = build_decoder(code, algo, 10, 0.75, 0.0, schedule, **quant)(llr)
     assert_same([x.numpy() for x in got], [x.numpy() for x in want])
     assert wrapper.launches == before
-    got = decode(code, llr, algo=algo, schedule=schedule, iters=10)
+    got = decode(code, llr, algo=algo, schedule=schedule, iters=10, **quant)
     assert_same([x.numpy() for x in got], [x.numpy() for x in want])

@@ -145,8 +145,7 @@ def test_cuda_request_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("what", [
-    "sumproduct_fast", "wbf", "bitflip", "windowed", "quant", "jnp",
-    "nr", "mesh", "find_fer", "profile"])
+    "wbf", "bitflip", "windowed", "jnp", "nr", "mesh", "profile"])
 def test_unsupported_modes_raise(what):
     from tpu_ldpc_torch.cli.sim import main
 
@@ -154,18 +153,15 @@ def test_unsupported_modes_raise(what):
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             CodeSpec(family="nr", rate="1/2", Z=32).build()
         return
-    if what in ("mesh", "find_fer", "profile"):
-        flag = {"mesh": ["--mesh"], "find_fer": ["--find-fer", "1e-2"],
-                "profile": ["--profile", "p"]}[what]
+    if what in ("mesh", "profile"):
+        flag = {"mesh": ["--mesh"], "profile": ["--profile", "p"]}[what]
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(["--family", "judged", "--device", "cpu", *flag])
         return
     cfg = {
-        "sumproduct_fast": DecodeCfg(algo="sumproduct-fast"),
         "wbf": DecodeCfg(algo="wbf"),
         "bitflip": DecodeCfg(algo="bitflip"),
         "windowed": DecodeCfg(schedule="windowed"),
-        "quant": DecodeCfg(quant_bits=5),
         "jnp": DecodeCfg(impl="jnp"),
     }[what]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -199,16 +195,33 @@ def test_sim_cli_end_to_end(tmp_path, capsys):
     ["--algo", "sumproduct"],
     ["--schedule", "layered", "--impl", "twophase", "--phase1-iters", "4",
      "--compact-budget", "16"],
-], ids=["layered", "sumproduct", "twophase"])
+    ["--algo", "sumproduct-fast"],
+    ["--quant-bits", "5", "--quant-step", "0.5"],
+    ["--algo", "sumproduct-fast", "--find-fer", "0.5", "--ebn0", "0.0",
+     "3.0"],
+], ids=["layered", "sumproduct", "twophase", "sumproduct-fast", "quant",
+        "find_fer"])
 def test_sim_cli_decoder_modes(tmp_path, capsys, flags):
-    """The modes slice 2 ported (they raised in slice 1) run end to end
-    through the CLI and land in the config hash."""
+    """The modes slices 2 and 3 ported (they raised before) run end to
+    end through the CLI and land in the config hash; --find-fer bisects
+    between min and max of --ebn0 instead of sweeping."""
     from tpu_ldpc_torch.cli.sim import main
 
+    common = ["--family", "judged", "--iters", "10", "--device", "cpu",
+              "--batch", "16", "--target-fe", "5"]
+    if "--find-fer" in flags:
+        sr = main([*common, *flags])
+        out = capsys.readouterr().out
+        assert "Eb/N0 @ FER 5.00e-01" in out and "converged" in out
+        assert sr.converged and sr.target_fer == 0.5
+        lo, hi = sr.bracket
+        assert 0.0 <= lo < sr.ebn0_db < hi <= 3.0 and hi - lo <= 0.1
+        assert [p.ebn0_db for p in sr.probes[:3]] == [0.0, 3.0, 1.5]
+        assert sr.probes[0].fer >= 0.5 >= sr.probes[1].fer
+        return
     csv = str(tmp_path / "out.csv")
-    results = main(["--family", "judged", "--ebn0", "1.5", "--iters", "10",
-                    "--device", "cpu", "--batch", "16", "--target-fe", "5",
-                    "--max-frames", "32", "--csv", csv, *flags])
+    results = main([*common, "--ebn0", "1.5", "--max-frames", "32",
+                    "--csv", csv, *flags])
     out = capsys.readouterr().out
     assert f"schedule={'layered' if 'layered' in flags else 'flooding'}" in out
     assert results[0].frames >= 16 and results[0].frame_errors > 0
@@ -221,6 +234,11 @@ def test_sim_cli_decoder_modes(tmp_path, capsys, flags):
     assert cfg.decode.phase1_iters == 4 and cfg.decode.compact_budget == 16
     assert cfg.config_hash() != SimConfig.from_sources(
         None, ["decode.schedule=layered"]).config_hash()
+    quant = SimConfig.from_sources(None, ["decode.quant_bits=5",
+                                          "decode.quant_step=0.25"])
+    assert quant.decode.quant_step == 0.25
+    assert quant.config_hash() != SimConfig.from_sources(
+        None, ["decode.quant_bits=5"]).config_hash()
 
 
 def test_twophase_run_ber_equals_single_pass():

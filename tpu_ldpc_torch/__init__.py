@@ -5,11 +5,12 @@ imports ``torch`` and never ``jax``, and nothing of ``tpu_ldpc``: what it
 needs of the JAX package's framework-free modules it keeps as its own
 copies, under the same names (``codes/``, ``report/``).
 
-Slices 1 and 2 cover BPSK over AWGN on the judged (1024, 512) code, the
+Slices 1-3 cover BPSK over AWGN on the judged (1024, 512) code, the
 registry's wifi / wimax families, alist and SC codes, decoded with
-normalized / offset min-sum or exact sum-product, on the flooding or the
-layered schedule, early termination on or off, in one pass or in two
-phases with straggler compaction:
+normalized / offset min-sum, exact sum-product, sumproduct-fast or
+fixed-point min-sum, on the flooding or the layered schedule, early
+termination on or off, in one pass or in two phases with straggler
+compaction, and the search for the Eb/N0 at a target FER:
 
 - ``codes``: LdpcCode, the registry, the Tanner layout, GF(2) algebra;
 - ``codes_device.to_device``: the code's tables as tensors on a device;
@@ -18,12 +19,13 @@ phases with straggler compaction:
 - ``decode.cuda_bp`` + ``csrc/bp_flood.cu``, ``csrc/bp_layered.cu``: the
   hand-written CUDA decode kernels for sm_90a;
 - ``decode.twophase``, ``decode.knobs``: two-phase decoding;
-- ``decode.api``, ``sim``, ``cli``, ``report``: the public entry points.
+- ``decode.api``, ``sim`` (``run_ber``, ``find_ebn0_at_fer``), ``cli``,
+  ``report``: the public entry points.
 
 Every function takes an explicit ``device`` (or follows its input
 tensor's device) and every random draw an explicit ``torch.Generator``.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from tpu_ldpc_torch.codes.code import LdpcCode  # noqa: F401

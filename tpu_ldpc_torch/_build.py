@@ -111,6 +111,7 @@ def _declare(lib) -> None:
             p, p, p, p, p,       # edge_col, edge_shift, row_ptr, col_slots, col_deg
             i, i, i, i, i, i,    # batch, Z, mb, nb, E, max_col_deg
             i, f, f, i,          # iters, alpha, beta, early_stop
+            i, f, f, f, f,       # quantized, step, kmax, lim_msg, lim_post
             p,                   # stream
         ]
         lib.ldpc_bp_flood.restype = ctypes.c_int
@@ -123,6 +124,7 @@ def _declare(lib) -> None:
             p, p, p,             # edge_col, edge_shift, row_ptr
             i, i, i, i, i,       # batch, Z, mb, nb, E
             i, f, f, i,          # iters, alpha, beta, early_stop
+            i, f, f, f, f,       # quantized, step, kmax, lim_msg, lim_post
             p,                   # stream
         ]
         lib.ldpc_bp_layered.restype = ctypes.c_int

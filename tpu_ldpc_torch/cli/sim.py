@@ -6,14 +6,20 @@
     python -m tpu_ldpc_torch.cli.sim --family judged --ebn0 2.0 \
         --schedule layered --iters 25 --impl twophase \
         --phase1-iters 9 --compact-budget 768
+    python -m tpu_ldpc_torch.cli.sim --family judged --ebn0 2.0 \
+        --quant-bits 6 --quant-step 0.25
+    python -m tpu_ldpc_torch.cli.sim --family judged \
+        --algo sumproduct-fast --find-fer 1e-2 --ebn0 1.5 2.5
 
 ``--device`` defaults to cuda and raises without a card; ``--device cpu``
-runs the plain PyTorch path.  ``--algo`` minsum | sumproduct,
-``--schedule`` flooding | layered, ``--impl`` auto | torch | cuda |
-twophase (with ``--phase1-iters`` / ``--compact-budget``).
-``--algo sumproduct-fast | bitflip | wbf``, ``--schedule windowed``,
-``--quant-bits``, ``--mesh``, ``--profile`` and ``--find-fer`` are not
-ported yet and raise.
+runs the plain PyTorch path.  ``--algo`` minsum | sumproduct |
+sumproduct-fast, ``--schedule`` flooding | layered, ``--impl`` auto |
+torch | cuda | twophase (with ``--phase1-iters`` / ``--compact-budget``),
+fixed-point min-sum with ``--quant-bits`` / ``--quant-step`` /
+``--quant-post-bits``.  ``--find-fer FER`` bisects for the Eb/N0 at that
+FER between min and max of ``--ebn0`` instead of sweeping.
+``--algo bitflip | wbf``, ``--schedule windowed``, ``--mesh`` and
+``--profile`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -25,7 +31,6 @@ import time
 _NOT_PORTED_FLAGS = {
     "mesh": "multi-device sweeps are ROADMAP Queue 1 item 8",
     "profile": "profiling the sweep is not ported yet (ROADMAP Queue 1 item 9)",
-    "find_fer": "the FER search (sim/search.py) is ROADMAP Queue 1 item 6",
 }
 
 
@@ -49,7 +54,13 @@ def build_parser():
     p.add_argument("--beta", type=float)
     p.add_argument("--schedule", choices=["flooding", "layered", "windowed"])
     p.add_argument("--quant-bits", type=int,
-                   help="fixed-point emulation (not ported yet)")
+                   help="fixed-point emulation: message width in bits "
+                        "(min-sum only; golden's quantization contract)")
+    p.add_argument("--quant-step", type=float,
+                   help="fixed-point emulation: LSB step, a power of two "
+                        "(default 0.5)")
+    p.add_argument("--quant-post-bits", type=int,
+                   help="fixed-point emulation: APP width (default bits+2)")
     p.add_argument("--impl", choices=["auto", "torch", "cuda", "jnp",
                                       "pallas", "twophase"])
     p.add_argument("--phase1-iters", type=int,
@@ -69,7 +80,8 @@ def build_parser():
     p.add_argument("--step-jsonl", help="write per-call JSONL records here")
     p.add_argument("--mesh", action="store_true", help="not ported yet")
     p.add_argument("--find-fer", type=float, metavar="FER",
-                   help="not ported yet")
+                   help="instead of sweeping, bisect for the Eb/N0 at "
+                        "this target FER (range = min/max of --ebn0)")
     p.add_argument("--profile", metavar="DIR", help="not ported yet")
     return p
 
@@ -85,6 +97,8 @@ def args_to_config(args):
         "decode.alpha": args.alpha, "decode.beta": args.beta,
         "decode.schedule": args.schedule, "decode.impl": args.impl,
         "decode.quant_bits": args.quant_bits,
+        "decode.quant_step": args.quant_step,
+        "decode.quant_post_bits": args.quant_post_bits,
         "decode.phase1_iters": args.phase1_iters,
         "decode.compact_budget": args.compact_budget,
         "run.batch": args.batch, "run.target_frame_errors": args.target_fe,
@@ -117,6 +131,25 @@ def main(argv=None):
     state = (
         SweepState(cfg.run.state_path, chash) if cfg.run.state_path else None
     )
+    if args.find_fer is not None:
+        from tpu_ldpc_torch.sim.search import find_ebn0_at_fer
+
+        grid = cfg.channel.ebn0_grid
+        t0 = time.time()
+        sr = find_ebn0_at_fer(
+            code, args.find_fer, cfg=cfg.decode,
+            lo=min(grid), hi=max(grid),
+            target_frame_errors=cfg.run.target_frame_errors,
+            batch=cfg.run.batch, seed=cfg.run.seed, progress=True,
+            device=cfg.run.device,
+        )
+        status = "converged" if sr.converged else "OUT OF RANGE"
+        print(f"\nEb/N0 @ FER {args.find_fer:.2e}: {sr.ebn0_db:.3f} dB "
+              f"(bracket [{sr.bracket[0]:.3f}, {sr.bracket[1]:.3f}], "
+              f"{status}, {len(sr.probes)} probes, "
+              f"wall={time.time() - t0:.1f}s)")
+        return sr
+
     t0 = time.time()
     results = run_ber(
         code,

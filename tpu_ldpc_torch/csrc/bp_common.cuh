@@ -1,6 +1,7 @@
 // Shared pieces of the BP decode kernels (bp_flood.cu, bp_layered.cu):
-// circulant index arithmetic, the standalone syndrome, and the two
-// check-node (CN) updates as template parameters.
+// circulant index arithmetic, the standalone syndrome, the three
+// check-node (CN) updates and the two quantization policies, all as
+// template parameters.
 //
 // A CN update is run by one thread over one check's edges in edge order,
 // in two passes that see the same q values (the caller recomputes q from
@@ -128,7 +129,112 @@ struct SumProduct {
   }
 };
 
-enum Algo { kMinSum = 0, kSumProduct = 1 };
+// sumproduct-fast (lambda-min2), golden's contract: the PWL
+// ctilde(x) ~ log(1+e^-x) and the pairwise soft-min f(a, b), exact or
+// correctly rounded fp32 ops only.  The slopes are powers of two, so the
+// products are exact (and -fmad=false keeps every product unfused anyway).
+__device__ __forceinline__ float ctilde(float x) {
+  return fmaxf(fmaxf(fmaxf(0.6931472f - 0.5f * x, 0.57f - 0.25f * x),
+                     0.40f - 0.125f * x),
+               0.0f);
+}
+
+__device__ __forceinline__ float fpair(float a, float b) {
+  const float d1 = ctilde(a + b);
+  const float d2 = ctilde(fabsf(a - b));
+  return fmaxf(fminf(a, b) + (d1 - d2), 0.0f);
+}
+
+// Three-smallest scan in edge order with first-occurrence argmins a1, a2
+// (strict <, the two-min scan's ties).  Output magnitude of slot t: degree
+// 1: its own |q|; degree 2: t == a1 ? m2 : m1; degree >= 3: t == a1 ?
+// f(m2, m3) : t == a2 ? f(m1, m3) : f(m1, m2).  alpha / beta are unused.
+struct SumProductFast {
+  float alpha, beta;
+  float m1, m2, m3, f12, f13, f23;
+  int a1, a2, deg, neg;
+
+  __device__ __forceinline__ void begin() {
+    m1 = 0.0f;
+    m2 = INFINITY;
+    m3 = INFINITY;
+    a1 = 0;
+    a2 = -1;
+    neg = 0;
+  }
+  __device__ __forceinline__ void add(int t, float q) {
+    const float mag = fabsf(q);
+    neg ^= q < 0.0f;
+    if (t == 0) {
+      m1 = mag;
+    } else if (mag < m1) {
+      m3 = m2;
+      m2 = m1;
+      a2 = a1;
+      m1 = mag;
+      a1 = t;
+    } else if (mag < m2) {
+      m3 = m2;
+      m2 = mag;
+      a2 = t;
+    } else if (mag < m3) {
+      m3 = mag;
+    }
+  }
+  __device__ __forceinline__ void finish(int d) {
+    deg = d;
+    if (d >= 3) {
+      f23 = fpair(m2, m3);
+      f13 = fpair(m1, m3);
+      f12 = fpair(m1, m2);
+    }
+  }
+  __device__ __forceinline__ float out(int t, float q) const {
+    const float total_sign = neg ? -1.0f : 1.0f;
+    const float sign = q < 0.0f ? -1.0f : 1.0f;
+    float mag;
+    if (deg == 1) {
+      mag = m1;
+    } else if (deg == 2) {
+      mag = t == a1 ? m2 : m1;
+    } else {
+      mag = t == a1 ? f23 : (t == a2 ? f13 : f12);
+    }
+    return (total_sign * sign) * mag;
+  }
+};
+
+// Quantization policies, applied by the kernels at golden's four points:
+// quantize() on the channel LLRs and on each CN output, sat() on each
+// VN->CN message fed to the CN, sat_post() on the posterior.  NoQuant is
+// the identity (the float decoders, unchanged).
+struct NoQuant {
+  __device__ __forceinline__ float quantize(float x) const { return x; }
+  __device__ __forceinline__ float sat(float x) const { return x; }
+  __device__ __forceinline__ float sat_post(float x) const { return x; }
+};
+
+// Fixed-point grid k * step, |k| <= kmax = 2^(bits-1)-1 (golden's
+// quantize / saturate): k = min(floor(|x| / step + 0.5), kmax), then
+// (sign(x) * k) * step, and +0.0 where k == 0.  step is a power of two,
+// so the true division is exact.  The limits are computed on the host in
+// fp32 as golden computes them.
+struct Quant {
+  float step, kmax, lim_msg, lim_post;
+
+  __device__ __forceinline__ float quantize(float x) const {
+    const float k = fminf(floorf(fabsf(x) / step + 0.5f), kmax);
+    return k == 0.0f ? 0.0f : ((x < 0.0f ? -1.0f : 1.0f) * k) * step;
+  }
+  __device__ __forceinline__ float sat(float x) const {
+    return fminf(fmaxf(x, -lim_msg), lim_msg);
+  }
+  __device__ __forceinline__ float sat_post(float x) const {
+    return fminf(fmaxf(x, -lim_post), lim_post);
+  }
+};
+
+enum Algo { kMinSum = 0, kSumProduct = 1, kSumProductFast = 2 };
 
 }  // namespace ldpc
 

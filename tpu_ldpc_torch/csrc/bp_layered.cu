@@ -1,16 +1,25 @@
-// Layered BP decoder (normalized / offset min-sum or exact sum-product)
-// for NVIDIA Hopper (sm_90a).
+// Layered BP decoder (normalized / offset min-sum, exact sum-product,
+// sumproduct-fast, and fixed-point quantized min-sum) for NVIDIA Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel tpu_ldpc/decode/pallas_bp.py::build_pallas_decoder
 // `kernel`, layered branch (one_iter, pallas_bp.py:608-634, with latch and
-// syndrome_violations) and its CN updates _cn_minsum_kernel (219-233) and
-// _cn_sumproduct_kernel / _phi (236-238, 306-321).  What it computes is
-// golden's row-layered schedule (golden/decoder.py:409-423):
+// syndrome_violations), its CN updates _cn_minsum_kernel (219-233),
+// _cn_sumproduct_kernel / _phi (236-238, 306-321) and
+// _cn_sumproduct_fast_kernel / _ctilde_k / _fpair_k (241-303), and its
+// quantized mode (qz / sat_msg / sat_post, 459-473, applied at 617-628 and
+// 885-887).  What it computes is golden's row-layered schedule
+// (golden/decoder.py:409-423):
 //
 //   for each block-row i in ascending order, for each of its Z checks r:
 //     q_e   = P[col_e*Z + (r+s_e) mod Z] - R[e*Z + r]    (edge order)
-//     r_e   = CN update of the row's q (bp_common.cuh)
-//     P[..] = q_e + r_e;  R[e*Z + r] = r_e
+//     r_e   = quantize(CN update of the row's sat(q))    (bp_common.cuh)
+//     P[..] = sat_post(q_e + r_e);  R[e*Z + r] = r_e
+//
+// The quantization policy (NoQuant: identities; Quant: golden's grid)
+// saturates only the CN's input: the posterior update uses the
+// unsaturated q_e, then the APP saturation (the wide-APP datapath).  The
+// LLRs are quantized as they load.
 //
 // Design:
 //   * One thread block per codeword; grid = batch.  P[n] and R[E*Z] stay
@@ -53,14 +62,14 @@ using namespace ldpc;
 
 constexpr int kMaxThreads = 256;
 
-template <class CN>
+template <class CN, class QP>
 __global__ void __launch_bounds__(kMaxThreads)
 bp_layered_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
                   uint8_t* __restrict__ ok_out, int32_t* __restrict__ iu_out,
                   const int32_t* __restrict__ edge_col,
                   const int32_t* __restrict__ edge_shift,
                   const int32_t* __restrict__ row_ptr, int Z, int mb, int nb,
-                  int E, int iters, CN proto, int early_stop) {
+                  int E, int iters, CN proto, QP quant, int early_stop) {
   extern __shared__ float smem[];
   const int n = nb * Z;
   const int m = mb * Z;
@@ -69,7 +78,9 @@ bp_layered_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
   const int64_t b = blockIdx.x;
   const float* llr_b = llr + b * n;
 
-  for (int v = threadIdx.x; v < n; v += blockDim.x) P[v] = llr_b[v];
+  for (int v = threadIdx.x; v < n; v += blockDim.x) {
+    P[v] = quant.quantize(llr_b[v]);
+  }
   for (int t = threadIdx.x; t < E * Z; t += blockDim.x) R[t] = 0.0f;
   __syncthreads();
 
@@ -90,14 +101,14 @@ bp_layered_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
         cn.begin();
         for (int e = e0; e < e1; ++e) {
           const int v = edge_col[e] * Z + wrap_add(r, edge_shift[e], Z);
-          cn.add(e - e0, P[v] - R[e * Z + r]);
+          cn.add(e - e0, quant.sat(P[v] - R[e * Z + r]));
         }
         cn.finish(e1 - e0);
         for (int e = e0; e < e1; ++e) {
           const int v = edge_col[e] * Z + wrap_add(r, edge_shift[e], Z);
           const float q = P[v] - R[e * Z + r];
-          const float r_new = cn.out(e - e0, q);
-          P[v] = q + r_new;
+          const float r_new = quant.quantize(cn.out(e - e0, quant.sat(q)));
+          P[v] = quant.sat_post(q + r_new);
           R[e * Z + r] = r_new;
         }
       }
@@ -129,23 +140,23 @@ bp_layered_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
   }
 }
 
-template <class CN>
+template <class CN, class QP>
 cudaError_t launch(const float* llr, uint8_t* bits, uint8_t* ok,
                    int32_t* iters_used, const int32_t* edge_col,
                    const int32_t* edge_shift, const int32_t* row_ptr,
                    int batch, int Z, int mb, int nb, int E, int iters,
-                   float alpha, float beta, int early_stop, int threads,
-                   size_t smem, cudaStream_t stream) {
+                   float alpha, float beta, QP quant, int early_stop,
+                   int threads, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      bp_layered_kernel<CN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bp_layered_kernel<CN, QP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   CN proto;
   proto.alpha = alpha;
   proto.beta = beta;
-  bp_layered_kernel<CN><<<batch, threads, smem, stream>>>(
+  bp_layered_kernel<CN, QP><<<batch, threads, smem, stream>>>(
       llr, bits, ok, iters_used, edge_col, edge_shift, row_ptr, Z, mb, nb,
-      E, iters, proto, early_stop);
+      E, iters, proto, quant, early_stop);
   return cudaGetLastError();
 }
 
@@ -166,29 +177,36 @@ int ldpc_bp_layered_threads(int Z) {
 
 // Launches one block per codeword on `stream` (a cudaStream_t) of the
 // current CUDA device; the caller makes the device of `stream` current.
-// algo: 0 min-sum, 1 sum-product (ldpc::Algo).  Returns the cudaError_t
-// of the attribute call or of the launch (cudaGetLastError); 0 means
-// launched.  Does not synchronise.
+// algo: 0 min-sum, 1 sum-product, 2 sumproduct-fast (ldpc::Algo).
+// quantized != 0 selects fixed-point min-sum on the grid `step` (a power
+// of two) with largest index `kmax` and saturation limits `lim_msg` /
+// `lim_post`; with any other algo it returns cudaErrorInvalidValue.
+// Returns the cudaError_t of the attribute call or of the launch
+// (cudaGetLastError); 0 means launched.  Does not synchronise.
 int ldpc_bp_layered(int algo, const float* llr, uint8_t* bits, uint8_t* ok,
                     int32_t* iters_used, const int32_t* edge_col,
                     const int32_t* edge_shift, const int32_t* row_ptr,
                     int batch, int Z, int mb, int nb, int E, int iters,
-                    float alpha, float beta, int early_stop, void* stream) {
+                    float alpha, float beta, int early_stop, int quantized,
+                    float step, float kmax, float lim_msg, float lim_post,
+                    void* stream) {
   const size_t smem = ldpc_bp_layered_smem_bytes(Z, nb, E);
   const int threads = ldpc_bp_layered_threads(Z);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (algo == kMinSum) {
-    return (int)launch<MinSum>(llr, bits, ok, iters_used, edge_col,
-                               edge_shift, row_ptr, batch, Z, mb, nb, E,
-                               iters, alpha, beta, early_stop, threads,
-                               smem, s);
+#define LDPC_LAUNCH(CN, QUANT)                                             \
+  launch<CN>(llr, bits, ok, iters_used, edge_col, edge_shift, row_ptr,    \
+             batch, Z, mb, nb, E, iters, alpha, beta, QUANT, early_stop,  \
+             threads, smem, s)
+  if (quantized) {
+    if (algo != kMinSum) return (int)cudaErrorInvalidValue;
+    return (int)LDPC_LAUNCH(MinSum, (Quant{step, kmax, lim_msg, lim_post}));
   }
-  if (algo == kSumProduct) {
-    return (int)launch<SumProduct>(llr, bits, ok, iters_used, edge_col,
-                                   edge_shift, row_ptr, batch, Z, mb, nb, E,
-                                   iters, alpha, beta, early_stop, threads,
-                                   smem, s);
+  if (algo == kMinSum) return (int)LDPC_LAUNCH(MinSum, NoQuant{});
+  if (algo == kSumProduct) return (int)LDPC_LAUNCH(SumProduct, NoQuant{});
+  if (algo == kSumProductFast) {
+    return (int)LDPC_LAUNCH(SumProductFast, NoQuant{});
   }
+#undef LDPC_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 

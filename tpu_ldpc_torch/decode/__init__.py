@@ -1,4 +1,5 @@
-"""Decoders: plain PyTorch min-sum / sum-product on the flooding and
-layered schedules, the CUDA kernels, two-phase decoding (L2)."""
+"""Decoders: plain PyTorch min-sum / sum-product / sumproduct-fast /
+fixed-point min-sum on the flooding and layered schedules, the CUDA
+kernels, two-phase decoding (L2)."""
 
 from tpu_ldpc_torch.decode.api import build_decode_fn, decode  # noqa: F401

@@ -1,8 +1,10 @@
 """Decoder dispatch (port of ``tpu_ldpc/decode/api.py``).
 
 ``decode(code, llrs, algo=..., iters=..., schedule=...) -> (bits, ok,
-iters_used)``.  algo is 'minsum' or 'sumproduct', schedule 'flooding' or
-'layered'.  ``impl`` picks the implementation:
+iters_used)``.  algo is 'minsum', 'sumproduct' or 'sumproduct-fast',
+schedule 'flooding' or 'layered'; ``quant_bits`` / ``quant_step`` /
+``quant_post_bits`` select fixed-point min-sum.  ``impl`` picks the
+implementation:
 
 - ``'auto'``: the CUDA kernel for CUDA tensors, the plain PyTorch
   version for CPU tensors -- chosen by the tensor's device, never as a
@@ -13,8 +15,9 @@ iters_used)``.  algo is 'minsum' or 'sumproduct', schedule 'flooding' or
   (``decode/twophase.py``), bit-identical to single-pass ET; its knobs
   resolve through ``decode/knobs.py``.
 
-``sumproduct-fast``, quantization, ``bitflip`` / ``wbf`` and the windowed
-schedule raise NotImplementedError naming their ROADMAP item.
+Quantization with ``bitflip`` / ``wbf`` or the windowed schedule raises
+ValueError, as in the JAX package; those algos and that schedule
+themselves raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -40,11 +43,18 @@ def build_decode_fn(code: LdpcCode, cfg, device):
     with early termination on."""
     device = resolve_device(device)
     impl = getattr(cfg, "impl", "auto")
-    if getattr(cfg, "quant_bits", None) is not None:
-        raise NotImplementedError(
-            "quantized decoding (quant_bits) is not ported yet "
-            "(ROADMAP Queue 2 K5)"
-        )
+    # the one set of quantization keywords every decoder below takes
+    quant = dict(quant_bits=getattr(cfg, "quant_bits", None),
+                 quant_step=getattr(cfg, "quant_step", 0.5),
+                 quant_post_bits=getattr(cfg, "quant_post_bits", None))
+    # quantization is plumbed through the soft BP paths only: reject it
+    # rather than report float results labeled as quantized
+    if quant["quant_bits"] is not None and (cfg.algo in ("bitflip", "wbf")
+                                            or cfg.schedule == "windowed"):
+        raise ValueError(
+            "quant_bits is not supported for hard-decision algos or the "
+            "windowed schedule; it is only plumbed through the soft "
+            "flooding/layered BP paths")
     if cfg.algo in ("bitflip", "wbf"):
         raise NotImplementedError(
             f"algo={cfg.algo!r} is not ported yet (ROADMAP Queue 1 item 7)"
@@ -65,9 +75,9 @@ def build_decode_fn(code: LdpcCode, cfg, device):
 
     from tpu_ldpc_torch.decode.reference import build_decoder
 
-    # validates algo / schedule (raises NotImplementedError for K4)
+    # validates algo, schedule and the quantization parameters
     plain = build_decoder(code, cfg.algo, cfg.iters, cfg.alpha, cfg.beta,
-                          cfg.schedule, True)
+                          cfg.schedule, True, **quant)
     if impl == "twophase":
         from tpu_ldpc_torch.decode.knobs import resolve_twophase_knobs
         from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
@@ -78,13 +88,14 @@ def build_decode_fn(code: LdpcCode, cfg, device):
         run = build_twophase_decoder(
             code, iters=cfg.iters, phase1_iters=k, budget=b,
             warn_on_fallback=source != "explicit", algo=cfg.algo,
-            alpha=cfg.alpha, beta=cfg.beta, schedule=cfg.schedule)
+            alpha=cfg.alpha, beta=cfg.beta, schedule=cfg.schedule,
+            **quant)
     elif impl == "torch":
         run = plain
     else:
-        from tpu_ldpc_torch.decode.cuda_bp import WRAPPERS
+        from tpu_ldpc_torch.decode.cuda_bp import wrapper_for
 
-        wrapper = WRAPPERS[(cfg.algo, cfg.schedule)]
+        wrapper = wrapper_for(cfg.algo, cfg.schedule, **quant)
 
         def run(llr):
             return wrapper(code, llr, cfg.iters, cfg.alpha, cfg.beta,
@@ -110,6 +121,8 @@ def decode(
     schedule: str = "flooding",
     impl: str = "auto",
     quant_bits: int | None = None,
+    quant_step: float = 0.5,
+    quant_post_bits: int | None = None,
     phase1_iters: int | None = None,
     compact_budget: int | None = None,
     device=None,
@@ -129,5 +142,6 @@ def decode(
     llrs = llrs.to(device=device, dtype=torch.float32).contiguous()
     cfg = DecodeCfg(algo=algo, iters=iters, alpha=alpha, beta=beta,
                     schedule=schedule, impl=impl, quant_bits=quant_bits,
+                    quant_step=quant_step, quant_post_bits=quant_post_bits,
                     phase1_iters=phase1_iters, compact_budget=compact_budget)
     return build_decode_fn(code, cfg, device)(llrs)

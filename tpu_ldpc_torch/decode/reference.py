@@ -27,8 +27,18 @@ CN updates: 'minsum' (normalized / offset) and 'sumproduct' (exact:
 phi(x) = -log(tanh(x/2)) on |q| clipped to [SP_MIN_MAG, SP_MAX_MAG],
 summed in edge order, output (total_sign * own_sign) * phi(tot - phi_e)).
 Sum-product's transcendentals round differently on every backend, so it
-is compared at frame level, not bit for bit.  'sumproduct-fast' (ROADMAP
-Queue 2 K4) raises.
+is compared at frame level, not bit for bit.  'sumproduct-fast' (the
+lambda-min2 PWL approximation: a three-smallest scan, then pairwise
+soft-mins built from a 3-segment PWL of log(1+e^-x) with power-of-two
+slopes) uses only exact or correctly rounded fp32 ops and is bit-exact,
+like min-sum.
+
+Fixed-point mode (min-sum only; ``quant_bits`` / ``quant_step`` /
+``quant_post_bits``, golden's quantization contract): the channel LLRs
+are quantized on entry, VN->CN messages saturated, CN outputs quantized
+and the posterior saturated to the wider APP width.  In the layered
+schedule the saturation feeds only the CN: the posterior update uses the
+unsaturated q, then the APP saturation.
 
 Shapes: LLR (batch, n) -> internal (batch, nb, Z); R (batch, E, Z).
 """
@@ -36,7 +46,9 @@ Shapes: LLR (batch, n) -> internal (batch, nb, Z); R (batch, E, Z).
 from __future__ import annotations
 
 import functools
+import math
 
+import numpy as np
 import torch
 
 from tpu_ldpc_torch.codes.code import LdpcCode
@@ -119,6 +131,100 @@ def _cn_sumproduct(qs):
             for e in range(len(qs))]
 
 
+def quant_params(bits: int, step: float, post_bits: int | None = None):
+    """(step, kmax, lim_msg, lim_post) as fp32-exact Python floats: the
+    grid step, the largest grid index 2^(bits-1)-1 and the two saturation
+    limits, computed in fp32 as golden's ``saturate`` computes them.
+    post_bits defaults to bits + 2.
+
+    step must be a power of two: |x|/step is then an exact exponent
+    shift, so every backend rounds the quantizer's +0.5 the same way."""
+    bits = int(bits)
+    post_bits = bits + 2 if post_bits is None else int(post_bits)
+    step = float(step)
+    if not (step > 0 and math.frexp(step)[0] == 0.5):
+        raise ValueError(
+            f"quant_step must be a power of two (got {step}): other steps "
+            "make |x|/step rounding backend-dependent and break the "
+            "bit-exact contract")
+    f32 = np.float32
+
+    def lim(b):
+        return float(f32(f32((1 << (b - 1)) - 1) * f32(step)))
+
+    return step, float((1 << (bits - 1)) - 1), lim(bits), lim(post_bits)
+
+
+def make_quantizers(bits: int, step: float, post_bits: int | None = None):
+    """(quantize, sat_msg, sat_post) on float32 tensors, bit-exact with
+    golden's ``quantize`` / ``saturate``: k = min(floor(|x|/step + 0.5),
+    2^(bits-1)-1), then (sign(x) * k) * step, and +0.0 (never -0.0) where
+    k == 0; the saturations are clips to the fp32 limits."""
+    step, kmax, lim_msg, lim_post = quant_params(bits, step, post_bits)
+
+    def quantize(x):
+        k = torch.clamp_max(torch.floor(x.abs() / step + 0.5), kmax)
+        signed = (torch.where(x < 0, -1.0, 1.0).to(x.dtype) * k) * step
+        return torch.where(k == 0, 0.0, signed).to(x.dtype)
+
+    def _sat(lim):
+        return lambda x: torch.clamp(x, -lim, lim)
+
+    return quantize, _sat(lim_msg), _sat(lim_post)
+
+
+def _ctilde(x):
+    """3-segment PWL of log(1+e^-x); the slopes are powers of two, so the
+    products are exact and no fused multiply-add can round otherwise."""
+    return torch.clamp_min(
+        torch.maximum(torch.maximum(0.6931472 - 0.5 * x, 0.57 - 0.25 * x),
+                      0.40 - 0.125 * x),
+        0.0)
+
+
+def _fpair(a, b):
+    """PWL pairwise soft-min of two magnitudes."""
+    d1 = _ctilde(a + b)
+    d2 = _ctilde((a - b).abs())
+    return torch.clamp_min(torch.minimum(a, b) + (d1 - d2), 0.0)
+
+
+def _cn_sumproduct_fast(qs):
+    """lambda-min2 sum-product (golden's sumproduct-fast contract):
+    three-smallest scan with first-occurrence argmins a1, a2 (strict <);
+    a degree-1 row sends its own magnitude, a degree-2 row each edge the
+    other's; otherwise edge a1 gets f(m2, m3), a2 f(m1, m3), the rest
+    f(m1, m2)."""
+    d = len(qs)
+    mags = [q.abs() for q in qs]
+    sgns = _signs(qs)
+    total_sign = _product(sgns)
+    if d == 1:
+        outs = [mags[0]]
+    elif d == 2:
+        outs = [mags[1], mags[0]]
+    else:
+        m1 = mags[0]
+        m2 = torch.full_like(m1, float("inf"))
+        m3 = m2
+        a1 = torch.zeros_like(m1, dtype=torch.int32)
+        a2 = torch.full_like(a1, -1)
+        for t in range(1, d):
+            mt = mags[t]
+            lt1 = mt < m1
+            lt2 = ~lt1 & (mt < m2)
+            lt3 = ~lt1 & ~lt2 & (mt < m3)
+            m3 = torch.where(lt1 | lt2, m2, torch.where(lt3, mt, m3))
+            m2 = torch.where(lt1, m1, torch.where(lt2, mt, m2))
+            a2 = torch.where(lt1, a1, torch.where(lt2, t, a2))
+            m1 = torch.where(lt1, mt, m1)
+            a1 = torch.where(lt1, t, a1)
+        f23, f13, f12 = _fpair(m2, m3), _fpair(m1, m3), _fpair(m1, m2)
+        outs = [torch.where(a1 == t, f23, torch.where(a2 == t, f13, f12))
+                for t in range(d)]
+    return [(total_sign * sgns[e]) * outs[e] for e in range(d)]
+
+
 def _syndrome_ok(P, edges, row_edges):
     """(batch,) bool: H @ hard(P) == 0, via rolled XOR over block-rows."""
     bits = P < 0  # (batch, nb, Z)
@@ -143,28 +249,40 @@ def build_decoder(
     beta: float = 0.0,
     schedule: str = "flooding",
     early_stop: bool = True,
+    quant_bits: int | None = None,
+    quant_step: float = 0.5,
+    quant_post_bits: int | None = None,
 ):
     """Plain decoder: llr (batch, n) float32 on any device ->
     (bits uint8 (batch, n), ok bool (batch,), iters_used int32 (batch,)).
 
+    quant_bits / quant_step / quant_post_bits: fixed-point mode (min-sum
+    only; post bits default to quant_bits + 2).
+
     ``decode_fn.posterior(llr)`` returns (P (batch, nb, Z), ok,
     iters_used) instead, for tests of the posterior itself."""
-    if algo == "sumproduct-fast":
-        raise NotImplementedError(
-            "algo='sumproduct-fast' is not ported yet (ROADMAP Queue 2 K4)")
-    if algo not in ("minsum", "sumproduct"):
+    if algo not in ("minsum", "sumproduct", "sumproduct-fast"):
         raise ValueError(f"unknown algo {algo!r}")
     if schedule not in ("flooding", "layered"):
         raise ValueError(f"unknown schedule {schedule!r}")
+    if quant_bits is not None and algo != "minsum":
+        raise ValueError("quantized decoding supports algo='minsum' only")
     edges, row_edges, col_edges = _block_structure(code)
     Z, nb, E = code.Z, code.nb, len(edges)
     # float32 constants, as the golden model rounds them
     alpha = float(torch.tensor(alpha, dtype=torch.float32))
     beta = float(torch.tensor(beta, dtype=torch.float32))
+    qz = sat_msg = sat_post = None
+    if quant_bits is not None:
+        qz, sat_msg, sat_post = make_quantizers(quant_bits, quant_step,
+                                                quant_post_bits)
 
     def cn_update(qs):
         if algo == "minsum":
-            return _cn_minsum(qs, alpha, beta)
+            outs = _cn_minsum(qs, alpha, beta)
+            return outs if qz is None else [qz(o) for o in outs]
+        if algo == "sumproduct-fast":
+            return _cn_sumproduct_fast(qs)
         return _cn_sumproduct(qs)
 
     def flooding_iter(L, P, R):
@@ -174,7 +292,8 @@ def build_decoder(
             qs = []
             for e in es:
                 _, j, s = edges[e]
-                qs.append(torch.roll(P[:, j, :], -s, dims=-1) - R[:, e, :])
+                q = torch.roll(P[:, j, :], -s, dims=-1) - R[:, e, :]
+                qs.append(q if sat_msg is None else sat_msg(q))
             for e, r_out in zip(es, cn_update(qs)):
                 R_new[e] = r_out
         R_new = torch.stack(R_new, dim=1)
@@ -184,7 +303,7 @@ def build_decoder(
             p = L[:, j, :]
             for e in col_edges[j]:
                 p = p + torch.roll(R_new[:, e, :], edges[e][2], dims=-1)
-            cols.append(p)
+            cols.append(p if sat_post is None else sat_post(p))
         return torch.stack(cols, dim=1), R_new
 
     def layered_iter(L, P, R):
@@ -192,13 +311,19 @@ def build_decoder(
         # (on lists of column / edge tensors, so the inputs stay intact)
         cols, msgs = list(P.unbind(1)), list(R.unbind(1))
         for es in row_edges:
-            qs = []
+            qs_raw = []
             for e in es:
                 _, j, s = edges[e]
-                qs.append(torch.roll(cols[j], -s, dims=-1) - msgs[e])
-            for e, q, r_out in zip(es, qs, cn_update(qs)):
+                qs_raw.append(torch.roll(cols[j], -s, dims=-1) - msgs[e])
+            # saturation feeds the CN only; the posterior update keeps
+            # the unsaturated q (golden's wide-APP datapath)
+            qs = qs_raw if sat_msg is None else [sat_msg(q) for q in qs_raw]
+            for e, q, r_out in zip(es, qs_raw, cn_update(qs)):
                 _, j, s = edges[e]
-                cols[j] = torch.roll(q + r_out, s, dims=-1)
+                p_new = q + r_out
+                if sat_post is not None:
+                    p_new = sat_post(p_new)
+                cols[j] = torch.roll(p_new, s, dims=-1)
                 msgs[e] = r_out
         return torch.stack(cols, dim=1), torch.stack(msgs, dim=1)
 
@@ -206,6 +331,8 @@ def build_decoder(
 
     def posterior(llr: torch.Tensor):
         llr = llr.to(torch.float32)
+        if qz is not None:
+            llr = qz(llr)  # channel-entry quantization
         batch = llr.shape[0]
         L = llr.reshape(batch, nb, Z)
         P = L

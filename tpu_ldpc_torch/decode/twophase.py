@@ -32,13 +32,17 @@ import torch
 from tpu_ldpc_torch.codes.code import LdpcCode
 
 
-def _et_decoder(code, iters, algo, alpha, beta, schedule):
+def _et_decoder(code, iters, algo, alpha, beta, schedule, quant_bits=None,
+                quant_step=0.5, quant_post_bits=None):
     """Single-pass ET decoder fn(llr): the kernel wrapper of
-    (algo, schedule), which runs its plain version for CPU tensors."""
-    from tpu_ldpc_torch.decode.cuda_bp import WRAPPERS
+    (algo, schedule, quantized), which runs its plain version for CPU
+    tensors."""
+    from tpu_ldpc_torch.decode.cuda_bp import wrapper_for
 
-    return functools.partial(WRAPPERS[(algo, schedule)], code, iters=iters,
-                             alpha=alpha, beta=beta, early_stop=True)
+    wrapper = wrapper_for(algo, schedule, quant_bits, quant_step,
+                          quant_post_bits)
+    return functools.partial(wrapper, code, iters=iters, alpha=alpha,
+                             beta=beta, early_stop=True)
 
 
 @functools.lru_cache(maxsize=32)
@@ -54,6 +58,9 @@ def build_twophase_decoder(
     alpha: float = 0.75,
     beta: float = 0.0,
     schedule: str = "flooding",
+    quant_bits: int | None = None,
+    quant_step: float = 0.5,
+    quant_post_bits: int | None = None,
 ):
     """Two-phase ET decoder: llr (batch, n) float32 -> (bits, ok,
     iters_used), bit-identical to the single-pass ET decoder with `iters`
@@ -71,6 +78,9 @@ def build_twophase_decoder(
       budget.
     phase1_alpha: run phase 1 with another normalization constant; the
       output is then NOT bit-identical to any single-pass decoder.
+    quant_bits / quant_step / quant_post_bits: fixed-point min-sum in
+      both phases (decode/reference.py), still bit-identical to
+      single-pass ET.
 
     Whether phase 2 is compacted or runs on the full batch is decided on
     the host: n_unconv is read once per call (one device-to-host copy and
@@ -80,8 +90,9 @@ def build_twophase_decoder(
     phase1_iters = min(int(phase1_iters), int(iters))
     budget = int(budget)
     alpha1 = alpha if phase1_alpha is None else float(phase1_alpha)
-    f1 = _et_decoder(code, phase1_iters, algo, alpha1, beta, schedule)
-    f2 = _et_decoder(code, int(iters), algo, alpha, beta, schedule)
+    quant = (quant_bits, quant_step, quant_post_bits)
+    f1 = _et_decoder(code, phase1_iters, algo, alpha1, beta, schedule, *quant)
+    f2 = _et_decoder(code, int(iters), algo, alpha, beta, schedule, *quant)
     warned = {"fired": False}
 
     def decode_fn(llr: torch.Tensor):

@@ -7,3 +7,7 @@ from tpu_ldpc_torch.sim.mc import (  # noqa: F401
     build_mc_step,
     run_ber,
 )
+from tpu_ldpc_torch.sim.search import (  # noqa: F401
+    FerSearchResult,
+    find_ebn0_at_fer,
+)

@@ -41,8 +41,11 @@ class DecodeCfg:
     beta: float = 0.0
     schedule: str = "flooding"  # 'flooding' | 'layered'
     impl: str = "auto"          # 'auto' | 'torch' | 'cuda' | 'twophase'
-    # fixed-point emulation mode: not ported (ROADMAP Queue 2 K5), raises
+    # fixed-point emulation mode (min-sum only): message width in bits,
+    # LSB step (a power of two) and APP width (None: quant_bits + 2)
     quant_bits: int | None = None
+    quant_step: float = 0.5
+    quant_post_bits: int | None = None
     # impl='twophase' only (decode/twophase.py): phase-1 iteration budget
     # K and the compacted phase-2 batch size.  None resolves them from the
     # knob table or the code rate (decode/knobs.py); explicit values win.
