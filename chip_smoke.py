@@ -12,8 +12,11 @@ on the judged (1024, 512) code through the public entry points -- slice
 min-sum, exact sum-product and two-phase decoding through decode(),
 run_ber and the CLI; slice 3: sumproduct-fast and fixed-point min-sum
 through decode(), two-phase, run_ber against the frozen quantized rows
-and the CLI's Eb/N0-at-FER search -- times kernels and plain versions
-with CUDA events, and prints:
+and the CLI's Eb/N0-at-FER search; slice 4: build_cuda_decoder's storage
+and arithmetic modes (compressed row state, bf16 messages, rescaled
+min-sum, shift normalization) against the float32 decoder, two-phase
+under bf16 and decode() in the code's own coordinates -- times kernels and
+plain versions with CUDA events, and prints:
 
   - one line per phase;
   - the card's name and power limit (nvidia-smi);
@@ -99,37 +102,73 @@ FP32_OPS_PER_S = 67e12
 # quantizer on the magnitude (/ step, + 0.5, floor, min, * step, the zero
 # select: 6), the sign already counted.  The channel quantizer and the
 # posterior clip, per variable, are left out.
+# rescaled min-sum (K8) sends the exclusive minimum itself (alpha 1, beta
+# 0): q, |q|, the compare, sign *, the VN add, plus one multiply of the
+# channel term per variable and iteration; compressed state (K6) scales
+# the two minima once per check row (max(m - beta, 0) and alpha * on
+# each: 4) and per edge does q, |q|, the compare, the VN add and the sign
+# of the message it rebuilds in each of its two passes (6); bf16 storage
+# (K7) and normalized coordinates (K9) count as their CN update
+# (conversions are loads and stores, indices are free).
 OPS_PER_EDGE_ITER = {"minsum": 7, "sumproduct": 19, "sumproduct-fast": 5,
-                     "minsum-quant": 15}
-OPS_PER_ROW_ITER = {"sumproduct-fast": 75}
+                     "minsum-quant": 15, "minsum-rescaled": 5,
+                     "minsum-compressed": 6}
+OPS_PER_ROW_ITER = {"sumproduct-fast": 75, "minsum-compressed": 4}
+OPS_PER_VAR_ITER = {"minsum-rescaled": 1}
 Q6 = {"quant_bits": 6, "quant_step": 0.25}
+PLAIN = {"normalize": False}  # K1-K5 are timed in the code's coordinates
+BF16 = {"msg_dtype": "bf16"}  # torch.bfloat16, set in main()
+SRC = "tpu_ldpc_torch/csrc/"
+PALLAS = "tpu_ldpc/decode/pallas_bp.py:"
 # (name, algo, schedule, main-path iterations, source, TPU kernel it
-# replaces, quantization of the timed and main-path runs)
+# replaces, build_cuda_decoder mode of the timed and phase-3 runs)
 KERNELS = (
-    ("minsum_flood", "minsum", "flooding", 50, "tpu_ldpc_torch/csrc/bp_flood.cu",
-     "tpu_ldpc/decode/pallas_bp.py:514", {}),
-    ("minsum_layered", "minsum", "layered", 25,
-     "tpu_ldpc_torch/csrc/bp_layered.cu", "tpu_ldpc/decode/pallas_bp.py:609",
-     {}),
-    ("sumproduct_flood", "sumproduct", "flooding", 50,
-     "tpu_ldpc_torch/csrc/bp_flood.cu", "tpu_ldpc/decode/pallas_bp.py:306",
-     {}),
+    ("minsum_flood", "minsum", "flooding", 50, SRC + "bp_flood.cu",
+     PALLAS + "514", PLAIN),
+    ("minsum_layered", "minsum", "layered", 25, SRC + "bp_layered.cu",
+     PALLAS + "609", PLAIN),
+    ("sumproduct_flood", "sumproduct", "flooding", 50, SRC + "bp_flood.cu",
+     PALLAS + "306", PLAIN),
     ("sumproduct_layered", "sumproduct", "layered", 25,
-     "tpu_ldpc_torch/csrc/bp_layered.cu", "tpu_ldpc/decode/pallas_bp.py:306",
-     {}),
-    ("spfast_flood", "sumproduct-fast", "flooding", 50,
-     "tpu_ldpc_torch/csrc/bp_flood.cu", "tpu_ldpc/decode/pallas_bp.py:259",
-     {}),
+     SRC + "bp_layered.cu", PALLAS + "306", PLAIN),
+    ("spfast_flood", "sumproduct-fast", "flooding", 50, SRC + "bp_flood.cu",
+     PALLAS + "259", PLAIN),
     ("spfast_layered", "sumproduct-fast", "layered", 25,
-     "tpu_ldpc_torch/csrc/bp_layered.cu", "tpu_ldpc/decode/pallas_bp.py:259",
-     {}),
-    ("minsum_quant_flood", "minsum", "flooding", 50,
-     "tpu_ldpc_torch/csrc/bp_flood.cu", "tpu_ldpc/decode/pallas_bp.py:459",
-     Q6),
-    ("minsum_quant_layered", "minsum", "layered", 25,
-     "tpu_ldpc_torch/csrc/bp_layered.cu", "tpu_ldpc/decode/pallas_bp.py:459",
-     Q6),
+     SRC + "bp_layered.cu", PALLAS + "259", PLAIN),
+    ("minsum_quant_flood", "minsum", "flooding", 50, SRC + "bp_flood.cu",
+     PALLAS + "459", {**PLAIN, **Q6}),
+    ("minsum_quant_layered", "minsum", "layered", 25, SRC + "bp_layered.cu",
+     PALLAS + "459", {**PLAIN, **Q6}),
+    # slice 4
+    ("minsum_compressed_flood", "minsum", "flooding", 50,
+     SRC + "bp_compressed.cu", PALLAS + "709", {"compressed": True}),
+    ("minsum_flood_bf16", "minsum", "flooding", 50, SRC + "bp_flood.cu",
+     PALLAS + "487", {**PLAIN, **BF16}),
+    ("minsum_layered_bf16", "minsum", "layered", 25, SRC + "bp_layered.cu",
+     PALLAS + "487", {**PLAIN, **BF16}),
+    ("sumproduct_flood_bf16", "sumproduct", "flooding", 50,
+     SRC + "bp_flood.cu", PALLAS + "487", {**PLAIN, **BF16}),
+    ("sumproduct_layered_bf16", "sumproduct", "layered", 25,
+     SRC + "bp_layered.cu", PALLAS + "487", {**PLAIN, **BF16}),
+    ("spfast_flood_bf16", "sumproduct-fast", "flooding", 50,
+     SRC + "bp_flood.cu", PALLAS + "487", {**PLAIN, **BF16}),
+    ("spfast_layered_bf16", "sumproduct-fast", "layered", 25,
+     SRC + "bp_layered.cu", PALLAS + "487", {**PLAIN, **BF16}),
+    ("minsum_rescaled_flood", "minsum", "flooding", 50, SRC + "bp_flood.cu",
+     PALLAS + "443", {**PLAIN, "rescaled": True}),
+    ("minsum_flood_normalized", "minsum", "flooding", 50,
+     SRC + "bp_flood.cu", PALLAS + "108", {"normalize": True}),
+    ("minsum_layered_normalized", "minsum", "layered", 25,
+     SRC + "bp_layered.cu", PALLAS + "108", {"normalize": True}),
 )
+
+
+def _kind(algo, mode):
+    """The OPS_PER_EDGE_ITER key of a kernel."""
+    for key in ("quant_bits", "rescaled", "compressed"):
+        if mode.get(key):
+            return "minsum-" + key.split("_")[0]
+    return algo
 
 
 def _noisy_llrs(code, batch, ebn0_db, seed):
@@ -207,7 +246,8 @@ def _bound_ms(code, batch, kind, iters_executed):
     'operations')."""
     nbytes = batch * code.n * 4 + batch * code.n + batch + batch * 4
     ops = ((OPS_PER_EDGE_ITER[kind] * code.layout.E * code.Z
-            + OPS_PER_ROW_ITER.get(kind, 0) * code.m)
+            + OPS_PER_ROW_ITER.get(kind, 0) * code.m
+            + OPS_PER_VAR_ITER.get(kind, 0) * code.n)
            * float(iters_executed))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -254,14 +294,30 @@ def main() -> int:
     from tpu_ldpc_torch import LdpcCode, _build
     from tpu_ldpc_torch.cli import sim as cli_sim
     from tpu_ldpc_torch.decode import decode
-    from tpu_ldpc_torch.decode.cuda_bp import WRAPPERS
+    from tpu_ldpc_torch.decode.cuda_bp import (
+        LAUNCHES, build_cuda_decoder, reset_launches)
     from tpu_ldpc_torch.decode.knobs import resolve_twophase_knobs
+    from tpu_ldpc_torch.decode.normalize import coordinates
     from tpu_ldpc_torch.decode.reference import build_decoder
     from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
     from tpu_ldpc_torch.sim.mc import DecodeCfg, build_mc_step, run_ber
 
-    wrappers = {name: WRAPPERS[(algo, sched, bool(quant))]
-                for name, algo, sched, _, _, _, quant in KERNELS}
+    rows = {row[0]: row for row in KERNELS}
+    modes = {name: {k: torch.bfloat16 if v == "bf16" else v
+                    for k, v in mode.items()}
+             for name, *_, mode in KERNELS}
+
+    def kernel(kname, code, iters, early_stop, **extra):
+        """The decoder of KERNELS row `kname` (its mode, then `extra`)."""
+        _, algo, sched, *_ = rows[kname]
+        return build_cuda_decoder(code, algo, iters, 0.75, 0.0, sched,
+                                  early_stop, **{**modes[kname], **extra})
+
+    def plain(kname, code, iters, early_stop, **extra):
+        """The plain version of the same decoder."""
+        _, algo, sched, *_ = rows[kname]
+        return build_decoder(code, algo, iters, 0.75, 0.0, sched, early_stop,
+                             **{**modes[kname], **extra})
 
     # ---- 1. device --------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -310,9 +366,8 @@ def main() -> int:
             for label, llr_np in inputs:
                 llr = torch.from_numpy(np.ascontiguousarray(llr_np)).to(dev)
                 for et in (True, False):
-                    got = wrappers[kname](code, llr, iters, 0.75, 0.0, et)
-                    want = build_decoder(code, algo, iters, 0.75, 0.0, sched,
-                                         et)(llr)
+                    got = kernel(kname, code, iters, et)(llr)
+                    want = plain(kname, code, iters, et)(llr)
                     torch.cuda.synchronize()
                     err, _ = _diff(got, want)
                     max_abs_err[kname] = max(max_abs_err[kname], err)
@@ -327,16 +382,18 @@ def main() -> int:
     for si, ebn0 in enumerate(SP_EBN0):
         sp_llr = torch.from_numpy(
             _noisy_llrs(judged, BATCH, ebn0, SEED + 5 + si)).to(dev)
-        for kname, algo, sched, iters, *_ in KERNELS[2:4]:  # sum-product
+        # sum-product, f32 and bf16 messages (K3 and K3 under K7); the
+        # control: the min-sum kernel of the same storage
+        for kname, algo, sched, iters, *_ in (KERNELS[2:4]
+                                              + KERNELS[11:13]):
             for et in (True, False):
-                got = wrappers[kname](judged, sp_llr, iters, early_stop=et)
-                want = build_decoder(judged, algo, iters, schedule=sched,
-                                     early_stop=et)(sp_llr)
+                got = kernel(kname, judged, iters, et)(sp_llr)
+                want = plain(kname, judged, iters, et)(sp_llr)
                 err, share = _diff(got, want)
                 max_abs_err[kname] = max(max_abs_err[kname], err)
                 agreement[kname] = min(agreement[kname], share)
-                ms = WRAPPERS[("minsum", sched, False)](judged, sp_llr, iters,
-                                                        early_stop=et)
+                ms = build_cuda_decoder(judged, "minsum", iters, 0.75, 0.0,
+                                        sched, et, **modes[kname])(sp_llr)
                 _, ms_share = _diff(ms, want)
                 print(f"[3 kernel~plain] {kname} judged {ebn0} dB b={BATCH} "
                       f"et={et}: frame agreement {share:.6f} (>= "
@@ -352,50 +409,88 @@ def main() -> int:
                                          f"check passes min-sum "
                                          f"({ms_share})")
 
-    # sumproduct-fast and fixed-point min-sum: bit-exact, both schedules; the
-    # 4-bit grid has a control: the float min-sum kernel on the same LLRs
-    # must not match the quantized plain version
+    # sumproduct-fast and fixed-point min-sum on the three codes, and the
+    # bit-exact slice-4 modes on the judged code (compressed state needs
+    # row degree <= 8): K6, K7 with min-sum and sumproduct-fast, K8.
+    # Bit-exact, both schedules; the 4-bit grid has a control: the float
+    # min-sum kernel on the same LLRs must not match the quantized plain
+    # version
     bases = {code.name: _noisy_llrs(code, BATCH, ebn0, SEED + ci)
              for ci, (code, ebn0, _) in enumerate(min_sum_cases)}
-    for kname, algo, sched, iters, *_ in KERNELS[4:]:
-        quants = ([Q6, {"quant_bits": 4, "quant_step": 0.5}]
-                  if "quant" in kname else [{}])
-        for q in quants:
-            for code, ebn0, _ in min_sum_cases:
-                base = bases[code.name]
-                for label, llr_np in ((f"{ebn0} dB b={BATCH}", base),
-                                      ("+-0.0/1e4 b=1024",
-                                       _special_llrs(base[:1024], SEED))):
-                    llr = torch.from_numpy(
-                        np.ascontiguousarray(llr_np)).to(dev)
-                    for et in (True, False):
-                        got = wrappers[kname](code, llr, iters, 0.75, 0.0,
-                                              et, **q)
-                        want = build_decoder(code, algo, iters, 0.75, 0.0,
-                                             sched, et, **q)(llr)
-                        torch.cuda.synchronize()
-                        err, _ = _diff(got, want)
-                        max_abs_err[kname] = max(max_abs_err[kname], err)
-                        what = (f"{kname} {q or ''} {code.name} {label} "
-                                f"et={et}")
-                        if err:
-                            raise AssertionError(f"{what}: kernel != plain "
-                                                 f"(max |diff| {err})")
-                        control = ""
-                        if q.get("quant_bits") == 4:
-                            fl = WRAPPERS[("minsum", sched, False)](
-                                code, llr, iters, 0.75, 0.0, et)
-                            c_err, c_share = _diff(fl, want)
-                            if not c_err:
-                                raise AssertionError(
-                                    f"{what}: the float min-sum kernel "
-                                    "matches the 4-bit plain version")
-                            control = (f"; control: float min-sum agrees on "
-                                       f"{c_share:.6f} of frames")
-                        print(f"[3 kernel==plain] {what}: bit-exact, "
-                              f"ok={float(got[1].float().mean()):.4f} "
-                              f"mean_iters="
-                              f"{float(got[2].double().mean()):.3f}{control}")
+    Q4 = {"quant_bits": 4, "quant_step": 0.5}
+    cases = [(kname, {}, min_sum_cases) for kname in ("spfast_flood",
+                                                      "spfast_layered")]
+    cases += [(kname, q, min_sum_cases) for kname in (
+        "minsum_quant_flood", "minsum_quant_layered") for q in (Q6, Q4)]
+    cases += [(kname, {}, min_sum_cases[:1]) for kname in (
+        "minsum_compressed_flood", "minsum_flood_bf16", "minsum_layered_bf16",
+        "spfast_flood_bf16", "spfast_layered_bf16", "minsum_rescaled_flood")]
+    for kname, q, codes in cases:
+        sched, iters = rows[kname][2], rows[kname][3]
+        for code, ebn0, _ in codes:
+            base = bases[code.name]
+            for label, llr_np in ((f"{ebn0} dB b={BATCH}", base),
+                                  ("+-0.0/1e4 b=1024",
+                                   _special_llrs(base[:1024], SEED))):
+                llr = torch.from_numpy(np.ascontiguousarray(llr_np)).to(dev)
+                for et in (True, False):
+                    got = kernel(kname, code, iters, et, **q)(llr)
+                    want = plain(kname, code, iters, et, **q)(llr)
+                    torch.cuda.synchronize()
+                    err, _ = _diff(got, want)
+                    max_abs_err[kname] = max(max_abs_err[kname], err)
+                    what = f"{kname} {q or ''} {code.name} {label} et={et}"
+                    if err:
+                        raise AssertionError(f"{what}: kernel != plain "
+                                             f"(max |diff| {err})")
+                    control = ""
+                    if q.get("quant_bits") == 4:
+                        fl = build_cuda_decoder(code, "minsum", iters, 0.75,
+                                                0.0, sched, et, **PLAIN)(llr)
+                        c_err, c_share = _diff(fl, want)
+                        if not c_err:
+                            raise AssertionError(
+                                f"{what}: the float min-sum kernel matches "
+                                "the 4-bit plain version")
+                        control = (f"; control: float min-sum agrees on "
+                                   f"{c_share:.6f} of frames")
+                    print(f"[3 kernel==plain] {what}: bit-exact, "
+                          f"ok={float(got[1].float().mean()):.4f} "
+                          f"mean_iters="
+                          f"{float(got[2].double().mean()):.3f}{control}")
+
+    # shift normalization (K9) on against off for K1, K2, K4 and K5, the
+    # three codes, ET on and off; the normalized K1 / K2 also against
+    # their plain version (normalize=True) on the judged code
+    for kname in ("minsum_flood", "minsum_layered", "spfast_flood",
+                  "minsum_quant_layered"):
+        iters = rows[kname][3]
+        row = kname + "_normalized"
+        for code, ebn0, _ in min_sum_cases:
+            base = bases[code.name]
+            for label, llr_np in ((f"{ebn0} dB b={BATCH}", base),
+                                  ("+-0.0/1e4 b=1024",
+                                   _special_llrs(base[:1024], SEED))):
+                llr = torch.from_numpy(np.ascontiguousarray(llr_np)).to(dev)
+                for et in (True, False):
+                    on = kernel(kname, code, iters, et, normalize=True)
+                    got = on(llr)
+                    err, _ = _diff(got, kernel(kname, code, iters, et)(llr))
+                    if row in rows and code is judged and label[0] != "+":
+                        p_err, _ = _diff(got, plain(kname, code, iters, et,
+                                                    normalize=True)(llr))
+                        err = max(err, p_err)
+                    if row in max_abs_err:
+                        max_abs_err[row] = max(max_abs_err[row], err)
+                    what = f"{kname} normalized {code.name} {label} et={et}"
+                    if err:
+                        raise AssertionError(f"{what}: != unnormalized "
+                                             f"(max |diff| {err})")
+                    print(f"[3 K9 on==off] {what}: bit-exact, "
+                          f"{sum(s == 0 for s in coordinates(code, True)[0])}"
+                          f" of {code.layout.E} shifts 0 (unnormalized "
+                          f"{sum(s == 0 for s in coordinates(code, False)[0])}"
+                          ")")
     print(f"[3] wall {time.perf_counter() - t_phase:.2f} s")
 
     # ---- 4. main paths (counts set to 0 before each, read after) ----------
@@ -549,23 +644,23 @@ def main() -> int:
                            DecodeCfg(quant_bits=bits, quant_step=step),
                            f"minsum {label} flooding 50", 3 + si, frames=run,
                            ref=_wilson_interval(errs, frames))
-        # the search alone must run K4 and not K3: its counts are read
-        # apart, then added back to the path's
-        before = {kname: w.launches for kname, w in wrappers.items()}
-        for w in wrappers.values():
-            w.launches = 0
+        # the search alone must run K4 and not K3: its counts are set to 0
+        # just before it, read apart, then added back to the path's
+        before = dict(LAUNCHES)
+        reset_launches()
         t0 = time.perf_counter()
         sr = cli_sim.main(["--family", "judged", "--algo", "sumproduct-fast",
                            "--find-fer", "1e-2", "--ebn0", "1.5", "2.5",
                            "--target-fe", "120", "--batch", str(BATCH),
                            "--device", "cuda"])
         torch.cuda.synchronize()
-        search = {kname: w.launches for kname, w in wrappers.items()}
-        for kname, w in wrappers.items():
-            w.launches += before[kname]
+        search = {kname: n for kname, n in LAUNCHES.items() if n}
+        for kname in LAUNCHES:
+            LAUNCHES[kname] += before[kname]
         print(f"[4 find-fer] launches of the search alone: {search}")
-        if search["spfast_flood"] < 1 or any(
-                n for kname, n in search.items() if kname != "spfast_flood"):
+        if (search.get("spfast_flood", 0) < 1
+                or search.get("sumproduct_flood", 0) != 0
+                or set(search) - {"spfast_flood", "spfast_flood_normalized"}):
             raise AssertionError(f"find-fer for sumproduct-fast launched "
                                  f"{search}, not spfast_flood alone")
         print(f"[4 find-fer] judged sumproduct-fast flooding 50 it: Eb/N0 at "
@@ -582,52 +677,128 @@ def main() -> int:
                 f"find-fer: {sr.ebn0_db} dB (converged {sr.converged}) is "
                 f"not within {SPFAST_BAND_DB} dB of {SPFAST_AT_FER_DB}")
 
+    def slice4_path():
+        """build_cuda_decoder's storage and arithmetic modes on the judged
+        code at 2.0 dB, b=4096, ET on: compressed state equal to the
+        float32 kernel, rescaled and bf16 min-sum within its >= 0.97 frame
+        contract, every CN update and schedule under bf16, normalized
+        against plain coordinates, two-phase under bf16, decode() in the
+        code's own coordinates."""
+        bf16 = torch.bfloat16
+        ref = build_cuda_decoder(judged, "minsum", 50, normalize=False)(llr)
+
+        def fer(out):
+            return 1.0 - float(out[1].double().mean())
+
+        def contract(out, want):
+            """(share of frames with equal bits, share with equal ok)."""
+            return (float((out[0] == want[0]).all(dim=1).double().mean()),
+                    float((out[1] == want[1]).double().mean()))
+
+        out = build_cuda_decoder(judged, "minsum", 50, compressed=True)(llr)
+        if _diff(out, ref)[0]:
+            raise AssertionError("compressed row state != float32 min-sum")
+        print(f"[4 modes] judged flooding min-sum 50 it 2.0 dB b={BATCH}: "
+              f"compressed state bit-identical to the float32 kernel, FER "
+              f"{fer(out):.4e}")
+        for what, kw in (("rescaled", dict(rescaled=True)),
+                         ("bf16 messages", dict(msg_dtype=bf16))):
+            out = build_cuda_decoder(judged, "minsum", 50, **kw)(llr)
+            share = contract(out, ref)
+            print(f"[4 modes] judged flooding min-sum 50 it {what}: agrees "
+                  f"with the float32 kernel on {share[0]:.6f} of frames' "
+                  f"bits and {share[1]:.6f} of ok; FER {fer(out):.4e} "
+                  f"against {fer(ref):.4e}")
+            if min(share) < 0.97:
+                raise AssertionError(f"{what}: {share} < 0.97")
+        for algo in ("minsum", "sumproduct", "sumproduct-fast"):
+            for sched, iters in (("flooding", 50), ("layered", 25)):
+                f32 = build_cuda_decoder(judged, algo, iters,
+                                         schedule=sched)(llr)
+                out = build_cuda_decoder(judged, algo, iters, schedule=sched,
+                                         msg_dtype=bf16)(llr)
+                share = contract(out, f32)
+                print(f"[4 modes] judged {algo} {sched} {iters} it bf16: "
+                      f"agrees with float32 on {share[0]:.6f} / "
+                      f"{share[1]:.6f} (bits / ok); FER {fer(out):.4e} "
+                      f"against {fer(f32):.4e}")
+                if min(share) < 0.97:
+                    raise AssertionError(f"{algo} {sched} bf16: {share}")
+        for sched, iters, k in (("flooding", 50, 20), ("layered", 25, 9)):
+            on = build_cuda_decoder(judged, "minsum", iters, schedule=sched)
+            off = build_cuda_decoder(judged, "minsum", iters, schedule=sched,
+                                     normalize=False)
+            if _diff(on(llr), off(llr))[0]:
+                raise AssertionError(f"normalized {sched} != unnormalized")
+            single = build_cuda_decoder(judged, "minsum", iters,
+                                        schedule=sched, msg_dtype=bf16)(llr)
+            fn = build_twophase_decoder(judged, iters, k, 768,
+                                        report_fallback=True, schedule=sched,
+                                        msg_dtype=bf16)
+            *got, n_unconv = fn(llr)
+            if _diff(got, single)[0]:
+                raise AssertionError(f"bf16 two-phase {sched} != single-pass")
+            print(f"[4 modes] judged min-sum {sched} {iters} it: normalized "
+                  f"== unnormalized; bf16 two-phase K={k} budget=768 "
+                  f"bit-identical to bf16 single-pass ET, n_unconv="
+                  f"{n_unconv}")
+        norm = build_cuda_decoder(judged, "minsum", 50)(llr)
+        before = dict(LAUNCHES)
+        out = decode(judged, llr)
+        if (LAUNCHES["minsum_flood"] != before["minsum_flood"] + 1
+                or LAUNCHES["minsum_flood_normalized"]
+                != before["minsum_flood_normalized"] or _diff(out, norm)[0]):
+            raise AssertionError("decode() did not run K1 in the code's own "
+                                 "coordinates or differs from the "
+                                 "normalized kernel")
+        print("[4 modes] decode(): K1 in the code's own coordinates, "
+              "bit-identical to the normalized kernel")
+
     for label, path, own in (("slice 1", slice1_path, KERNELS[:1]),
                              ("slice 2", slice2_path, KERNELS[1:4]),
-                             ("slice 3", slice3_path, KERNELS[4:])):
+                             ("slice 3", slice3_path, KERNELS[4:8]),
+                             ("slice 4", slice4_path, KERNELS[8:])):
         t_phase = time.perf_counter()
-        for w in wrappers.values():
-            w.launches = 0
+        reset_launches()
         path()
         torch.cuda.synchronize()
-        counts = {kname: w.launches for kname, w in wrappers.items()}
+        counts = {kname: n for kname, n in LAUNCHES.items() if n}
         print(f"[4 main path] {label}: launches {counts}, wall "
               f"{time.perf_counter() - t_phase:.2f} s")
         for kname, *_ in own:
-            if counts[kname] < 1:
+            if LAUNCHES[kname] < 1:
                 raise AssertionError(f"{label} launched {kname} no time")
-        for kname in counts:
-            launches[kname] += counts[kname]
+        for kname in launches:
+            launches[kname] += LAUNCHES[kname]
 
     # ---- 5. times (CUDA events, after warm-up) ----------------------------
     t_phase = time.perf_counter()
     info_bits = BATCH * judged.k
     results = []
     k_times = {}
-    for kname, algo, sched, iters, source, replaces, quant in KERNELS:
-        wrapper = wrappers[kname]
-        kind = "minsum-quant" if quant else algo
-        plain_off = build_decoder(judged, algo, iters, 0.75, 0.0, sched,
-                                  False, **quant)
+    for kname, algo, sched, iters, source, replaces, mode in KERNELS:
+        kind = _kind(algo, mode)
+        run_off = kernel(kname, judged, iters, False)
+        run_on = kernel(kname, judged, iters, True)
+        plain_off = plain(kname, judged, iters, False)
 
         def kernel_off():
-            wrapper(judged, llr, iters, 0.75, 0.0, early_stop=False, **quant)
+            run_off(llr)
 
         def kernel_on():
-            return wrapper(judged, llr, iters, 0.75, 0.0, early_stop=True,
-                           **quant)
+            return run_on(llr)
 
-        def plain():
+        def plain_run():
             plain_off(llr)
 
-        for fn in (kernel_off, plain, kernel_on):
+        for fn in (kernel_off, plain_run, kernel_on):
             fn()
         torch.cuda.synchronize()
         # plain, kernel, kernel, plain: both see the same card state
-        p1 = _cuda_time_ms(plain, 2)
+        p1 = _cuda_time_ms(plain_run, 2)
         k1 = _cuda_time_ms(kernel_off, 20)
         k2 = _cuda_time_ms(kernel_off, 20)
-        p2 = _cuda_time_ms(plain, 2)
+        p2 = _cuda_time_ms(plain_run, 2)
         k_on = _cuda_time_ms(kernel_on, 20)
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
         _, ok_on, iu_on = kernel_on()
@@ -635,14 +806,14 @@ def main() -> int:
         bound_off, by_off = _bound_ms(judged, BATCH, kind, BATCH * iters)
         bound_on, by_on = _bound_ms(judged, BATCH, kind, iters_on)
         k_times[kname] = (k_ms, k_on)
-        print(f"[5 time] {kname} {quant or ''} judged b={BATCH} {iters} it "
+        print(f"[5 time] {kname} {mode} judged b={BATCH} {iters} it "
               f"ET off: kernel "
               f"{k_ms:.4f} ms/batch ({k1:.4f}, {k2:.4f}) = "
               f"{k_ms / iters:.5f} ms/iteration = "
               f"{info_bits / k_ms * 1e3:.4e} info bit/s; plain {p_ms:.4f} "
               f"ms/batch ({p1:.4f}, {p2:.4f}); bound {bound_off:.5f} ms "
               f"({by_off})")
-        print(f"[5 time] {kname} {quant or ''} judged b={BATCH} 2.0 dB ET on "
+        print(f"[5 time] {kname} {mode} judged b={BATCH} 2.0 dB ET on "
               f"(mean iters "
               f"{iters_on / BATCH:.3f}): kernel {k_on:.4f} ms/batch = "
               f"{info_bits / k_on * 1e3:.4e} info bit/s; bound "
@@ -663,17 +834,45 @@ def main() -> int:
                      ("spfast_flood", "sumproduct_flood"),
                      ("spfast_layered", "sumproduct_layered"),
                      ("spfast_flood", "minsum_flood"),
-                     ("spfast_layered", "minsum_layered")):
+                     ("spfast_layered", "minsum_layered"),
+                     ("minsum_compressed_flood", "minsum_flood"),
+                     ("minsum_rescaled_flood", "minsum_flood"),
+                     ("minsum_flood_bf16", "minsum_flood"),
+                     ("minsum_layered_bf16", "minsum_layered"),
+                     ("sumproduct_flood_bf16", "sumproduct_flood"),
+                     ("sumproduct_layered_bf16", "sumproduct_layered"),
+                     ("spfast_flood_bf16", "spfast_flood"),
+                     ("spfast_layered_bf16", "spfast_layered"),
+                     ("minsum_flood_normalized", "minsum_flood"),
+                     ("minsum_layered_normalized", "minsum_layered")):
         (n_off, n_on), (o_off, o_on) = k_times[new], k_times[old]
         print(f"[5 time] {new} / {old}, same iterations: ET off "
               f"{n_off / o_off:.4f}x ({n_off:.4f} / {o_off:.4f} ms), ET on "
               f"{n_on / o_on:.4f}x ({n_on:.4f} / {o_on:.4f} ms)")
 
-    layered = wrappers["minsum_layered"]
+    # shift normalization on against off, ET off, in turns (off, on, on,
+    # off, three times): decode() runs normalize=False because the
+    # normalized kernels measured slower than the spread of these runs
+    # (PERF.md, K9)
+    for sched, iters in (("flooding", 50), ("layered", 25)):
+        runs = {norm: build_cuda_decoder(judged, "minsum", iters,
+                                         schedule=sched, early_stop=False,
+                                         normalize=norm)
+                for norm in (False, True)}
+        ts = {False: [], True: []}
+        for _ in range(3):
+            for norm in (False, True, True, False):
+                ts[norm].append(_cuda_time_ms(lambda: runs[norm](llr), 20))
+        print(f"[5 K9] judged min-sum {sched} {iters} it ET off: normalized "
+              f"{np.median(ts[True]):.4f} ms median {ts[True]}, unnormalized "
+              f"{np.median(ts[False]):.4f} ms median {ts[False]}; ratio "
+              f"{np.median(ts[True]) / np.median(ts[False]):.4f}")
+
+    layered = build_cuda_decoder(judged, "minsum", 25, schedule="layered")
     fn = build_twophase_decoder(judged, 25, 9, 768, schedule="layered")
 
     def single_pass():
-        layered(judged, llr, 25, 0.75, 0.0, early_stop=True)
+        layered(llr)
 
     def two_phase():
         fn(llr)

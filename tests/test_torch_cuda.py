@@ -1,8 +1,10 @@
 """The CUDA decode kernels on the card against the plain PyTorch version
 and the golden model: K1 (flooding min-sum), K2 (layered min-sum), K4
-(sumproduct-fast) and K5 (fixed-point min-sum), both schedules, bit-exact
-with golden float32, K3 (exact sum-product, both schedules) frame by
-frame, and two-phase decoding bit-identical to single-pass ET.
+(sumproduct-fast), K5 (fixed-point min-sum), K6 (compressed row state),
+K8 (rescaled min-sum) and K9 (shift normalization), bit-exact with golden
+float32, K3 (exact sum-product, both schedules) frame by frame, K7 (bf16
+messages) against its plain version, and two-phase decoding
+bit-identical to single-pass ET.
 
 Marked `cuda`; each test skips without a CUDA device.  The file imports
 no JAX (only the JAX package's NumPy golden model and code registry), so
@@ -22,11 +24,16 @@ from tpu_ldpc.golden import encode as golden_encode
 from tpu_ldpc_torch import LdpcCode
 from tpu_ldpc_torch.decode import decode
 from tpu_ldpc_torch.decode.cuda_bp import (
-    WRAPPERS, minsum_flood, minsum_layered)
+    LAUNCHES, build_cuda_decoder, kernel_name)
 from tpu_ldpc_torch.decode.reference import build_decoder
 from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
 
 pytestmark = pytest.mark.cuda
+# (algo, schedule, quantized) of the K1-K5 kernels
+KERNEL_KEYS = [(algo, schedule, False)
+               for algo in ("minsum", "sumproduct", "sumproduct-fast")
+               for schedule in ("flooding", "layered")] + [
+    ("minsum", "flooding", True), ("minsum", "layered", True)]
 
 CODES = [("judged", "1/2", 64, 2.0), ("wifi", "2/3", 27, 2.0),
          ("wimax", "5/6", 96, 3.0)]
@@ -95,9 +102,10 @@ def test_kernel_bitexact_vs_plain_and_golden(cuda, family, rate, Z, ebn0,
     ref, code = codes(family, rate, Z)
     llr_np = special_llrs(code, ebn0)
     llr = torch.from_numpy(llr_np).to(cuda)
-    before = minsum_flood.launches
-    got = minsum_flood(code, llr, 50, 0.75, 0.0, early_stop)
-    assert minsum_flood.launches == before + 1
+    before = LAUNCHES["minsum_flood"]
+    got = build_cuda_decoder(code, "minsum", 50, 0.75, 0.0, "flooding",
+                             early_stop, normalize=False)(llr)
+    assert LAUNCHES["minsum_flood"] == before + 1
     want = build_decoder(code, "minsum", 50, 0.75, 0.0, "flooding",
                          early_stop)(llr)
     assert_same(got, want)
@@ -112,9 +120,10 @@ def test_layered_kernel_bitexact_vs_plain_and_golden(cuda, family, rate, Z,
     ref, code = codes(family, rate, Z)
     llr_np = special_llrs(code, ebn0)
     llr = torch.from_numpy(llr_np).to(cuda)
-    before = minsum_layered.launches
-    got = minsum_layered(code, llr, 25, 0.75, 0.0, early_stop)
-    assert minsum_layered.launches == before + 1
+    before = LAUNCHES["minsum_layered"]
+    got = build_cuda_decoder(code, "minsum", 25, 0.75, 0.0, "layered",
+                             early_stop, normalize=False)(llr)
+    assert LAUNCHES["minsum_layered"] == before + 1
     want = build_decoder(code, "minsum", 25, 0.75, 0.0, "layered",
                          early_stop)(llr)
     assert_same(got, want)
@@ -131,12 +140,13 @@ def test_spfast_kernels_bitexact_vs_plain_and_golden(cuda, family, rate, Z,
     ref, code = codes(family, rate, Z)
     llr_np = special_llrs(code, ebn0)
     llr = torch.from_numpy(llr_np).to(cuda)
-    wrapper = WRAPPERS[("sumproduct-fast", schedule, False)]
     iters = 50 if schedule == "flooding" else 25
     for early_stop in (True, False):
-        before = wrapper.launches
-        got = wrapper(code, llr, iters, early_stop=early_stop)
-        assert wrapper.launches == before + 1
+        fn = build_cuda_decoder(code, "sumproduct-fast", iters,
+                                schedule=schedule, early_stop=early_stop)
+        before = LAUNCHES[fn.kernel]
+        got = fn(llr)
+        assert LAUNCHES[fn.kernel] == before + 1
         want = build_decoder(code, "sumproduct-fast", iters,
                              schedule=schedule, early_stop=early_stop)(llr)
         assert_same(got, want)
@@ -159,8 +169,9 @@ def test_spfast_kernels_on_low_degree_rows(cuda):
     llr = torch.from_numpy(llr_np).to(cuda)
     for schedule in ("flooding", "layered"):
         for early_stop in (True, False):
-            got = WRAPPERS[("sumproduct-fast", schedule, False)](
-                code, llr, 10, early_stop=early_stop)
+            got = build_cuda_decoder(code, "sumproduct-fast", 10,
+                                     schedule=schedule,
+                                     early_stop=early_stop)(llr)
             assert_same(got, build_decoder(code, "sumproduct-fast", 10,
                                            schedule=schedule,
                                            early_stop=early_stop)(llr))
@@ -179,13 +190,14 @@ def test_quant_kernels_bitexact_vs_plain_and_golden(cuda, family, rate, Z,
     ref, code = codes(family, rate, Z)
     llr_np = special_llrs(code, ebn0)
     llr = torch.from_numpy(llr_np).to(cuda)
-    wrapper = WRAPPERS[("minsum", schedule, True)]
     iters = 50 if schedule == "flooding" else 25
     q = dict(quant_bits=bits, quant_step=step)
     for early_stop in (True, False):
-        before = wrapper.launches
-        got = wrapper(code, llr, iters, 0.75, 0.0, early_stop, **q)
-        assert wrapper.launches == before + 1
+        fn = build_cuda_decoder(code, "minsum", iters, 0.75, 0.0, schedule,
+                                early_stop, **q)
+        before = LAUNCHES[fn.kernel]
+        got = fn(llr)
+        assert LAUNCHES[fn.kernel] == before + 1
         want = build_decoder(code, "minsum", iters, 0.75, 0.0, schedule,
                              early_stop, **q)(llr)
         assert_same(got, want)
@@ -196,36 +208,55 @@ def test_quant_kernels_bitexact_vs_plain_and_golden(cuda, family, rate, Z,
 
 
 def test_quant_kernel_refuses_other_algos(cuda):
-    """The C entry point returns cudaErrorInvalidValue for quantization
-    with a CN other than min-sum; the Python entry points raise first."""
+    """The C entry points return cudaErrorInvalidValue for quantization
+    with a CN other than min-sum or with bf16 messages, rescaled min-sum
+    with another CN, and compressed rows of degree > 8; the Python entry
+    points raise first."""
     from tpu_ldpc_torch._build import load_library
     from tpu_ldpc_torch.codes_device import to_device
-    from tpu_ldpc_torch.decode.cuda_bp import (
-        _decode, minsum_quant_layered, wrapper_for)
 
     _, code = codes("judged", "1/2", 64)
     llr = torch.zeros((4, code.n), device=cuda)
     with pytest.raises(ValueError, match="minsum"):
         decode(code, llr, algo="sumproduct-fast", schedule="layered",
                quant_bits=6)
-    with pytest.raises(ValueError, match="quant_bits=6"):
-        wrapper_for("sumproduct-fast", "layered", quant_bits=6)
-    launches = minsum_quant_layered.launches
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        _decode(minsum_quant_layered, "sumproduct-fast", "layered", code,
-                llr, 5, 0.75, 0.0, True, (6, 0.25, 8))
-    assert minsum_quant_layered.launches == launches
-    lib = load_library("bp_layered")
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="minsum"):
+        build_cuda_decoder(code, "sumproduct-fast", schedule="layered",
+                           quant_bits=6)
+    assert LAUNCHES == before
     dc = to_device(code, cuda)
     out = torch.empty((4, code.n), dtype=torch.uint8, device=cuda)
     ok = torch.empty(4, dtype=torch.bool, device=cuda)
     iu = torch.empty(4, dtype=torch.int32, device=cuda)
-    err = lib.ldpc_bp_layered(
-        2, llr.data_ptr(), out.data_ptr(), ok.data_ptr(), iu.data_ptr(),
-        dc.edge_col.data_ptr(), dc.edge_shift.data_ptr(),
-        dc.row_ptr.data_ptr(), 4, code.Z, code.mb, code.nb, dc.E, 5, 0.75,
-        0.0, 1, 1, 0.25, 31.0, 7.75, 31.75,
-        torch.cuda.current_stream().cuda_stream)
+    zeros = torch.zeros(code.nb, dtype=torch.int32, device=cuda)
+    io = (llr.data_ptr(), out.data_ptr(), ok.data_ptr(), iu.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = load_library("bp_layered")
+    for algo, bf16 in ((2, 0), (0, 1)):
+        err = lib.ldpc_bp_layered(
+            algo, *io, dc.edge_col.data_ptr(), dc.edge_shift.data_ptr(),
+            dc.row_ptr.data_ptr(), zeros.data_ptr(), 4, code.Z, code.mb,
+            code.nb, dc.E, 5, 0.75, 0.0, 1, bf16, 1, 0.25, 31.0, 7.75, 31.75,
+            stream)
+        assert err != 0
+    lib = load_library("bp_flood")
+    for algo, bf16, rescaled, quantized in ((2, 0, 0, 1), (1, 0, 1, 0),
+                                            (0, 1, 1, 0), (0, 0, 1, 1)):
+        err = lib.ldpc_bp_flood(
+            algo, *io, dc.edge_col.data_ptr(), dc.edge_shift.data_ptr(),
+            dc.row_ptr.data_ptr(), dc.col_slots.data_ptr(),
+            dc.col_deg.data_ptr(), zeros.data_ptr(), 4, code.Z, code.mb,
+            code.nb, dc.E, int(dc.col_slots.shape[1]), 5, 0.75, 0.0, 1,
+            bf16, rescaled, 1.0 / 0.75, quantized, 0.25, 31.0, 7.75, 31.75,
+            stream)
+        assert err != 0
+    lib = load_library("bp_compressed")
+    err = lib.ldpc_bp_compressed(
+        *io, dc.edge_row.data_ptr(), dc.edge_col.data_ptr(),
+        dc.edge_shift.data_ptr(), dc.row_ptr.data_ptr(),
+        dc.col_slots.data_ptr(), dc.col_deg.data_ptr(), 4, code.Z, code.mb,
+        code.nb, 9, int(dc.col_slots.shape[1]), 5, 0.75, 0.0, 1, stream)
     assert err != 0
 
 
@@ -234,10 +265,10 @@ def test_sumproduct_kernels_agree_with_plain_and_golden(cuda, schedule):
     ref, code = codes("judged", "1/2", 64)
     llr_np = noisy_llrs(code, 257, 1.75, seed=22)
     llr = torch.from_numpy(llr_np).to(cuda)
-    wrapper = WRAPPERS[("sumproduct", schedule, False)]
-    before = wrapper.launches
-    got = wrapper(code, llr, 30)
-    assert wrapper.launches == before + 1
+    fn = build_cuda_decoder(code, "sumproduct", 30, schedule=schedule)
+    before = LAUNCHES[fn.kernel]
+    got = fn(llr)
+    assert LAUNCHES[fn.kernel] == before + 1
     plain = build_decoder(code, "sumproduct", 30, schedule=schedule)(llr)
     # the same card: at most 2 of 257 frames may split on rounding
     assert frame_agreement(got, plain) >= 0.99
@@ -260,8 +291,8 @@ def test_sumproduct_kernels_on_extreme_llrs(cuda, schedule):
         np.asarray([0.0 if i % 3 else 1e-30 for i in range(n)], np.float32),
     ])).to(cuda)
     for early_stop in (True, False):
-        got = WRAPPERS[("sumproduct", schedule, False)](code, llr, 8,
-                                                 early_stop=early_stop)
+        got = build_cuda_decoder(code, "sumproduct", 8, schedule=schedule,
+                                 early_stop=early_stop)(llr)
         want = build_decoder(code, "sumproduct", 8, schedule=schedule,
                              early_stop=early_stop)(llr)
         assert_same(got, want)
@@ -300,12 +331,16 @@ def test_decode_api_launches_the_kernel_and_checks_inputs(cuda):
     _, code = codes("judged", "1/2", 64)
     llr = torch.from_numpy(noisy_llrs(code, 64, 2.0, seed=3)).to(cuda)
     current = torch.cuda.current_device()
-    for (algo, schedule, quantized), wrapper in WRAPPERS.items():
+    for algo, schedule, quantized in KERNEL_KEYS:
         quant = dict(quant_bits=5) if quantized else {}
-        before = wrapper.launches
+        name = kernel_name(algo, schedule, quantized=quantized)
+        before = dict(LAUNCHES)
         got = decode(code, llr, algo=algo, schedule=schedule, iters=20,
                      **quant)
-        assert wrapper.launches == before + 1
+        # decode() runs in the code's own coordinates (PERF.md, K9)
+        assert LAUNCHES[name] == before[name] + 1
+        assert LAUNCHES[f"{name}_normalized"] == (
+            before[f"{name}_normalized"])
         assert torch.cuda.current_device() == current
         want = decode(code, llr, algo=algo, schedule=schedule, iters=20,
                       impl="torch", **quant)
@@ -313,14 +348,111 @@ def test_decode_api_launches_the_kernel_and_checks_inputs(cuda):
             assert_same(got, want)
         else:
             assert frame_agreement(got, want) >= 0.99
-    before = minsum_flood.launches
+    before = LAUNCHES["minsum_flood"]
     assert_same(decode(code, llr.cpu().numpy()), decode(code, llr))
-    assert minsum_flood.launches == before + 2  # NumPy input goes to the card
+    assert LAUNCHES["minsum_flood"] == before + 2  # NumPy input: the card
+    layered = build_cuda_decoder(code, schedule="layered")
     with pytest.raises(TypeError):
-        minsum_layered(code, llr.double())
+        layered(llr.double())
     with pytest.raises(ValueError, match="contiguous"):
-        minsum_layered(code, torch.cat([llr, llr], 1)[:, ::2])
+        layered(torch.cat([llr, llr], 1)[:, ::2])
     with pytest.raises(ValueError):
-        minsum_flood(code, llr[:, :100].contiguous())
-    empty = minsum_layered(code, llr[:0])
+        build_cuda_decoder(code)(llr[:, :100].contiguous())
+    empty = layered(llr[:0])
     assert empty[0].shape == (0, code.n)
+
+
+# ---- slice 4: K6 compressed row state, K7 bf16 messages, K8 rescaled
+# min-sum, K9 shift normalization ----
+
+def test_compressed_and_rescaled_kernels_vs_golden(cuda):
+    """K6 and K8 on the judged code, ET on and off, +-0.0 and 1e4 LLRs
+    included: bit-exact with the plain version and golden float32 (K8
+    with golden's rescaled contract; K6 equals the standard decoder)."""
+    ref, code = codes("judged", "1/2", 64)
+    llr_np = special_llrs(code, 2.0)
+    llr = torch.from_numpy(llr_np).to(cuda)
+    for kw in (dict(compressed=True), dict(rescaled=True),
+               dict(rescaled=True, normalize=False)):
+        for early_stop in (True, False):
+            fn = build_cuda_decoder(code, "minsum", 50, 0.75, 0.0,
+                                    "flooding", early_stop, **kw)
+            before = LAUNCHES[fn.kernel]
+            got = fn(llr)
+            assert LAUNCHES[fn.kernel] == before + 1
+            assert_same(got, build_decoder(code, "minsum", 50, 0.75, 0.0,
+                                           "flooding", early_stop, **kw)(llr))
+            assert_same([x[:GOLDEN_ROWS] for x in got], golden_decode(
+                ref.H, llr_np[:GOLDEN_ROWS], iters=50, alpha=0.75,
+                dtype=np.float32, early_stop=early_stop,
+                rescaled=kw.get("rescaled", False)))
+
+
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("algo", ["minsum", "sumproduct-fast", "sumproduct"])
+def test_bf16_kernels_vs_plain(cuda, algo, schedule):
+    """K7: bit-exact with the plain bf16 version (exact sum-product:
+    >= 0.99 of frames), normalized and not, ET on and off; min-sum within
+    the >= 0.97 contract of float32."""
+    _, code = codes("judged", "1/2", 64)
+    llr = torch.from_numpy(special_llrs(code, 2.0)).to(cuda)
+    iters = 50 if schedule == "flooding" else 25
+    for normalize in (True, False):
+        for early_stop in (True, False):
+            args = (code, algo, iters, 0.75, 0.0, schedule, early_stop)
+            fn = build_cuda_decoder(*args, normalize=normalize,
+                                    msg_dtype=torch.bfloat16)
+            assert fn.kernel.endswith("_bf16")
+            got = fn(llr)
+            want = build_decoder(*args, msg_dtype=torch.bfloat16)(llr)
+            if algo == "sumproduct":
+                assert frame_agreement(got, want) >= 0.99
+            else:
+                assert_same(got, want)
+            if algo == "minsum":
+                f32 = build_cuda_decoder(*args)(llr)
+                assert min(agreement(got, f32)) >= 0.97
+
+
+@pytest.mark.parametrize("family,rate,Z,ebn0", CODES)
+def test_normalized_kernels_vs_golden(cuda, family, rate, Z, ebn0):
+    """K9 on and off for K1, K2, K4 and K5, ET on and off: bit-exact
+    with each other and with golden float32."""
+    ref, code = codes(family, rate, Z)
+    llr_np = special_llrs(code, ebn0)
+    llr = torch.from_numpy(llr_np).to(cuda)
+    for algo, schedule, q in (("minsum", "flooding", {}),
+                              ("minsum", "layered", {}),
+                              ("sumproduct-fast", "flooding", {}),
+                              ("minsum", "layered", dict(quant_bits=6,
+                                                         quant_step=0.25))):
+        iters = 50 if schedule == "flooding" else 25
+        for early_stop in (True, False):
+            args = (code, algo, iters, 0.75, 0.0, schedule, early_stop)
+            on = build_cuda_decoder(*args, normalize=True, **q)
+            before = LAUNCHES[f"{on.kernel}_normalized"]
+            got = on(llr)
+            assert LAUNCHES[f"{on.kernel}_normalized"] == before + 1
+            assert_same(got, build_cuda_decoder(*args, normalize=False,
+                                                **q)(llr))
+            assert_same([x[:GOLDEN_ROWS] for x in got], golden_decode(
+                ref.H, llr_np[:GOLDEN_ROWS], algo=algo, iters=iters,
+                alpha=0.75, schedule=schedule, dtype=np.float32,
+                early_stop=early_stop, **q))
+
+
+def test_slice4_twophase_on_card(cuda):
+    """Two-phase with bf16 messages, rescaled and compressed state:
+    bit-identical to single-pass ET under the same mode."""
+    _, code = codes("judged", "1/2", 64)
+    llr = torch.from_numpy(noisy_llrs(code, 1024, 2.0, seed=25)).to(cuda)
+    for kw in (dict(msg_dtype=torch.bfloat16),
+               dict(msg_dtype=torch.bfloat16, schedule="layered"),
+               dict(rescaled=True), dict(compressed=True)):
+        iters, k = (25, 9) if kw.get("schedule") == "layered" else (50, 20)
+        single = build_cuda_decoder(code, iters=iters, **kw)(llr)
+        fn = build_twophase_decoder(code, iters, k, 512,
+                                    report_fallback=True, **kw)
+        *got, n_unconv = fn(llr)
+        assert 0 < n_unconv <= 512
+        assert_same(got, single)

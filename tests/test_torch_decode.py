@@ -23,7 +23,7 @@ from tpu_ldpc.golden import encode as golden_encode
 from tpu_ldpc_torch import LdpcCode
 from tpu_ldpc_torch.codes_device import to_device
 from tpu_ldpc_torch.decode import decode
-from tpu_ldpc_torch.decode.cuda_bp import minsum_flood
+from tpu_ldpc_torch.decode.cuda_bp import build_cuda_decoder
 from tpu_ldpc_torch.decode.reference import build_decoder
 
 torch.set_num_threads(1)
@@ -165,8 +165,9 @@ def test_decode_api_dispatches_by_device():
     assert_same([x.numpy() for x in got], want)
     assert_same([x.numpy() for x in decode(code, llr, impl="torch",
                                            device="cpu")], want)
-    # the kernel's wrapper takes its plain version only for CPU tensors
-    got = minsum_flood(code, torch.from_numpy(llr), 50, 0.75, 0.0)
+    # the kernel's builder takes its plain version only for CPU tensors
+    got = build_cuda_decoder(code, "minsum", 50, 0.75, 0.0)(
+        torch.from_numpy(llr))
     assert_same([x.numpy() for x in got], want)
     with pytest.raises(ValueError, match="CUDA device"):
         decode(code, llr, impl="cuda", device="cpu")

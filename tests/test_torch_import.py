@@ -18,6 +18,7 @@ PORT_MODULES = (
     "tpu_ldpc_torch.codes.gf2", "tpu_ldpc_torch.codes_device",
     "tpu_ldpc_torch.report.waterfall", "tpu_ldpc_torch.decode",
     "tpu_ldpc_torch.decode.cuda_bp", "tpu_ldpc_torch.decode.twophase",
+    "tpu_ldpc_torch.decode.normalize",
     "tpu_ldpc_torch.decode.knobs", "tpu_ldpc_torch.encode",
     "tpu_ldpc_torch.channel", "tpu_ldpc_torch.sim",
     "tpu_ldpc_torch.sim.state", "tpu_ldpc_torch.sim.search",
@@ -60,7 +61,8 @@ def test_no_port_module_imports_the_jax_package():
     first letters)."""
     paths = sorted(glob.glob(os.path.join(REPO, "tpu_ldpc_torch", "**",
                                           "*.py"), recursive=True))
-    paths.append(os.path.join(REPO, "chip_smoke.py"))
+    paths += [os.path.join(REPO, "chip_smoke.py"),
+              os.path.join(REPO, "scripts", "torch_ab_time.py")]
     assert len(paths) > 20
     for path in paths:
         bad = [m for m in _imported_modules(path)

@@ -21,7 +21,7 @@ from tpu_ldpc.golden import decode as golden_decode
 from tpu_ldpc.golden import encode as golden_encode
 from tpu_ldpc_torch import LdpcCode
 from tpu_ldpc_torch.decode import decode
-from tpu_ldpc_torch.decode.cuda_bp import WRAPPERS
+from tpu_ldpc_torch.decode.cuda_bp import LAUNCHES, build_cuda_decoder
 from tpu_ldpc_torch.decode.reference import build_decoder
 
 torch.set_num_threads(1)
@@ -235,18 +235,22 @@ def test_sumproduct_saturated_phi_is_negative_zero():
 
 @pytest.mark.parametrize("algo,schedule,quantized", [
     pytest.param(*key, id="-".join(key[:2]) + ("-quant" if key[2] else ""))
-    for key in sorted(WRAPPERS)])
+    for key in sorted(
+        [(algo, sched, False) for algo in ("minsum", "sumproduct",
+                                           "sumproduct-fast")
+         for sched in ("flooding", "layered")]
+        + [("minsum", sched, True) for sched in ("flooding", "layered")])])
 def test_wrappers_run_the_plain_version_on_cpu(algo, schedule, quantized):
-    """Each kernel wrapper, given a CPU tensor, returns its plain
-    version's result and launches nothing."""
+    """Each kernel's decoder (build_cuda_decoder), given a CPU tensor,
+    returns its plain version's result and launches nothing."""
     _, code = toy_codes()
     llr = torch.from_numpy(noisy_llrs(code, 12, 2.5, seed=14))
-    wrapper = WRAPPERS[(algo, schedule, quantized)]
     quant = dict(quant_bits=5, quant_step=0.5) if quantized else {}
-    before = wrapper.launches
-    got = wrapper(code, llr, 10, 0.75, 0.0, **quant)
+    before = dict(LAUNCHES)
+    got = build_cuda_decoder(code, algo, 10, 0.75, 0.0, schedule,
+                             **quant)(llr)
     want = build_decoder(code, algo, 10, 0.75, 0.0, schedule, **quant)(llr)
     assert_same([x.numpy() for x in got], [x.numpy() for x in want])
-    assert wrapper.launches == before
+    assert LAUNCHES == before
     got = decode(code, llr, algo=algo, schedule=schedule, iters=10, **quant)
     assert_same([x.numpy() for x in got], [x.numpy() for x in want])

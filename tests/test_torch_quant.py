@@ -21,7 +21,7 @@ from tpu_ldpc.golden import encode as golden_encode
 from tpu_ldpc.golden.decoder import quantize, saturate
 from tpu_ldpc_torch import LdpcCode
 from tpu_ldpc_torch.decode import decode
-from tpu_ldpc_torch.decode.cuda_bp import WRAPPERS
+from tpu_ldpc_torch.decode.cuda_bp import build_cuda_decoder
 from tpu_ldpc_torch.decode.reference import (
     build_decoder, make_quantizers, quant_params)
 from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
@@ -176,8 +176,8 @@ def test_decode_quant_bits_equals_golden():
     got = decode(code, llr, iters=10, quant_bits=5, quant_step=0.5,
                  device="cpu")
     assert_same([x.numpy() for x in got], want)
-    wrapper = WRAPPERS[("minsum", "flooding", True)]
-    got = wrapper(code, torch.from_numpy(llr), 10, quant_bits=5)
+    got = build_cuda_decoder(code, "minsum", 10, quant_bits=5)(
+        torch.from_numpy(llr))
     assert_same([x.numpy() for x in got], want)
 
 

@@ -24,7 +24,7 @@ from tpu_ldpc.golden.decoder import _ctilde as golden_ctilde
 from tpu_ldpc.golden.decoder import _fpair as golden_fpair
 from tpu_ldpc_torch import LdpcCode
 from tpu_ldpc_torch.decode import decode
-from tpu_ldpc_torch.decode.cuda_bp import WRAPPERS
+from tpu_ldpc_torch.decode.cuda_bp import LAUNCHES, build_cuda_decoder
 from tpu_ldpc_torch.decode.reference import _ctilde, _fpair, build_decoder
 from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
 
@@ -181,16 +181,16 @@ def test_decode_dispatch_and_quant_rejected():
     want = golden(ref, llr, iters=20)
     got = decode(code, llr, algo="sumproduct-fast", iters=20, device="cpu")
     assert_same([x.numpy() for x in got], want)
-    wrapper = WRAPPERS[("sumproduct-fast", "flooding", False)]
-    before = wrapper.launches
-    got = wrapper(code, torch.from_numpy(llr), 20)
+    before = dict(LAUNCHES)
+    got = build_cuda_decoder(code, "sumproduct-fast", 20)(
+        torch.from_numpy(llr))
     assert_same([x.numpy() for x in got], want)
-    assert wrapper.launches == before
+    assert LAUNCHES == before
     with pytest.raises(ValueError, match="minsum"):
         build_decoder(code, "sumproduct-fast", quant_bits=6)
     with pytest.raises(ValueError, match="minsum"):
         decode(code, llr, algo="sumproduct-fast", quant_bits=6,
                device="cpu")
-    with pytest.raises(ValueError, match="quant_bits=6"):
+    with pytest.raises(ValueError, match="minsum"):
         build_twophase_decoder(code, 20, algo="sumproduct-fast",
                                quant_bits=6)

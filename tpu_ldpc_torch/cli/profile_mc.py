@@ -59,7 +59,7 @@ def main() -> int:
 
     from tpu_ldpc_torch import LdpcCode
     from tpu_ldpc_torch.codes_device import to_device
-    from tpu_ldpc_torch.decode.cuda_bp import minsum_flood
+    from tpu_ldpc_torch.decode.cuda_bp import build_cuda_decoder
     from tpu_ldpc_torch.sim.mc import DecodeCfg, build_mc_step
 
     print(f"nvidia-smi name,power.limit: {_smi('name,power.limit')}")
@@ -111,6 +111,7 @@ def main() -> int:
           f"untraced wall")
 
     E = to_device(code, "cuda").E
+    k1 = build_cuda_decoder(code, "minsum", 50, 0.75, 0.0, early_stop=False)
     acc = _smem_accesses_per_iteration(code, E)
     peak_bps = 32 * 4 * sms * max_sm_mhz * 1e6
     for b in SCALING_BATCHES:
@@ -118,13 +119,13 @@ def main() -> int:
         llr = (torch.randn((b, code.n), generator=gen, device="cuda") * 2
                + 2).contiguous()
         for _ in range(2):
-            minsum_flood(code, llr, 50, 0.75, 0.0, early_stop=False)
+            k1(llr)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(10):
-            minsum_flood(code, llr, 50, 0.75, 0.0, early_stop=False)
+            k1(llr)
         end.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / 10

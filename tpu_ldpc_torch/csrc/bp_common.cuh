@@ -1,7 +1,8 @@
-// Shared pieces of the BP decode kernels (bp_flood.cu, bp_layered.cu):
-// circulant index arithmetic, the standalone syndrome, the three
-// check-node (CN) updates and the two quantization policies, all as
-// template parameters.
+// Shared pieces of the BP decode kernels (bp_flood.cu, bp_layered.cu,
+// bp_compressed.cu): circulant index arithmetic, the standalone syndrome,
+// the check-node (CN) updates, the two quantization policies and the two
+// message-storage policies, all as template parameters, and the
+// compressed row state's pack and reconstruct.
 //
 // A CN update is run by one thread over one check's edges in edge order,
 // in two passes that see the same q values (the caller recomputes q from
@@ -17,6 +18,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -34,6 +36,16 @@ __device__ __forceinline__ int wrap_add(int a, int b, int Z) {
 __device__ __forceinline__ int wrap_sub(int a, int b, int Z) {
   const int x = a - b;
   return x < 0 ? x + Z : x;
+}
+
+// Shift normalization's coordinates: variable v = j*Z + z of the code
+// sits at j*Z + (z - col_off[j]) mod Z of the decoder's state.  A null
+// col_off means plain coordinates (v itself, no division, no load).
+__device__ __forceinline__ int state_index(int v, const int32_t* col_off,
+                                           int Z) {
+  if (col_off == nullptr) return v;
+  const int j = v / Z;
+  return j * Z + wrap_sub(v - j * Z, col_off[j], Z);
 }
 
 // Violated checks of hard(P) among this thread's checks (check c =
@@ -85,13 +97,43 @@ struct MinSum {
   __device__ __forceinline__ void finish(int deg) {
     if (deg == 1) min2 = min1;
   }
+  // alpha * max(m - beta, 0): the magnitude sent for a scan minimum m
+  __device__ __forceinline__ float scaled(float m) const {
+    return alpha * fmaxf(m - beta, 0.0f);
+  }
   __device__ __forceinline__ float out(int t, float q) const {
     const float total_sign = neg ? -1.0f : 1.0f;
     const float sign = q < 0.0f ? -1.0f : 1.0f;
-    const float mag_excl = fmaxf((t == argmin ? min2 : min1) - beta, 0.0f);
-    return (total_sign * sign) * (alpha * mag_excl);
+    return (total_sign * sign) * scaled(t == argmin ? min2 : min1);
   }
 };
+
+// Min-sum of the rescaled contract (golden/decoder.py, rescaled=True):
+// alpha 1 and beta 0, so the output is the exclusive minimum itself, with
+// no multiply (max(m - 0, 0) == m for the +0.0-or-positive m of fabsf).
+// The 1/alpha scaling lives in the channel term, once per variable.
+struct MinSumUnit : MinSum {
+  __device__ __forceinline__ float out(int t, float q) const {
+    const float total_sign = neg ? -1.0f : 1.0f;
+    const float sign = q < 0.0f ? -1.0f : 1.0f;
+    return (total_sign * sign) * (t == argmin ? min2 : min1);
+  }
+};
+
+// Compressed row state of one check (bp_compressed.cu): the two output
+// magnitudes m1 = scaled(min1), m2 = scaled(min2), the argmin slot and a
+// sign byte whose bit t is the sign of slot t's message, total_sign XOR
+// own sign (x < 0, as everywhere here).  reconstruct() rebuilds slot t's
+// message exactly as MinSum::out forms it: +-1 * m is +-m, -0.0 included.
+__device__ __forceinline__ int pack_signs(int neg, int own, int deg) {
+  return neg ? ~own & ((1 << deg) - 1) : own;
+}
+
+__device__ __forceinline__ float reconstruct(float m1, float m2, int arg,
+                                             int sgn, int t) {
+  const float mag = t == arg ? m2 : m1;
+  return (sgn >> t) & 1 ? -mag : mag;
+}
 
 // Sum-product stability clips, the golden model's SP_MIN_MAG / SP_MAX_MAG.
 constexpr float kSpMinMag = 1e-9f;
@@ -231,6 +273,25 @@ struct Quant {
   }
   __device__ __forceinline__ float sat_post(float x) const {
     return fminf(fmaxf(x, -lim_post), lim_post);
+  }
+};
+
+// Message-storage policies for R: F32Msg keeps float32; Bf16Msg stores
+// bf16 rounded to nearest even (as PyTorch's .to(torch.bfloat16) and XLA's
+// astype round) and widens on load, exactly.  Compute stays float32.
+struct F32Msg {
+  using T = float;
+  static __device__ __forceinline__ float load(T x) { return x; }
+  static __device__ __forceinline__ T store(float x) { return x; }
+};
+
+struct Bf16Msg {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ float load(T x) {
+    return __bfloat162float(x);
+  }
+  static __device__ __forceinline__ T store(float x) {
+    return __float2bfloat16_rn(x);
   }
 };
 

@@ -1,5 +1,6 @@
 """Decoders: plain PyTorch min-sum / sum-product / sumproduct-fast /
-fixed-point min-sum on the flooding and layered schedules, the CUDA
-kernels, two-phase decoding (L2)."""
+fixed-point min-sum on the flooding and layered schedules, with shift
+normalization, rescaled min-sum, bf16 messages or compressed row state,
+the CUDA kernels, two-phase decoding (L2)."""
 
 from tpu_ldpc_torch.decode.api import build_decode_fn, decode  # noqa: F401

@@ -6,7 +6,8 @@ schedule 'flooding' or 'layered'; ``quant_bits`` / ``quant_step`` /
 ``quant_post_bits`` select fixed-point min-sum.  ``impl`` picks the
 implementation:
 
-- ``'auto'``: the CUDA kernel for CUDA tensors, the plain PyTorch
+- ``'auto'``: ``build_cuda_decoder`` (decode/cuda_bp.py), in the code's
+  own coordinates: the CUDA kernel for CUDA tensors, the plain PyTorch
   version for CPU tensors -- chosen by the tensor's device, never as a
   fallback;
 - ``'torch'``: the plain PyTorch version on any device;
@@ -73,11 +74,6 @@ def build_decode_fn(code: LdpcCode, cfg, device):
     if impl == "cuda" and device.type != "cuda":
         raise ValueError(f"impl='cuda' needs a CUDA device, got {device}")
 
-    from tpu_ldpc_torch.decode.reference import build_decoder
-
-    # validates algo, schedule and the quantization parameters
-    plain = build_decoder(code, cfg.algo, cfg.iters, cfg.alpha, cfg.beta,
-                          cfg.schedule, True, **quant)
     if impl == "twophase":
         from tpu_ldpc_torch.decode.knobs import resolve_twophase_knobs
         from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
@@ -89,17 +85,21 @@ def build_decode_fn(code: LdpcCode, cfg, device):
             code, iters=cfg.iters, phase1_iters=k, budget=b,
             warn_on_fallback=source != "explicit", algo=cfg.algo,
             alpha=cfg.alpha, beta=cfg.beta, schedule=cfg.schedule,
-            **quant)
+            normalize=False, **quant)
     elif impl == "torch":
-        run = plain
+        from tpu_ldpc_torch.decode.reference import build_decoder
+
+        run = build_decoder(code, cfg.algo, cfg.iters, cfg.alpha, cfg.beta,
+                            cfg.schedule, True, **quant)
     else:
-        from tpu_ldpc_torch.decode.cuda_bp import wrapper_for
+        # the code's own coordinates, unlike the JAX package's TPU path
+        # (build_pallas_decoder's default): the outputs are the same, and
+        # on the H100 shift normalization measured slower (PERF.md, K9)
+        from tpu_ldpc_torch.decode.cuda_bp import build_cuda_decoder
 
-        wrapper = wrapper_for(cfg.algo, cfg.schedule, **quant)
-
-        def run(llr):
-            return wrapper(code, llr, cfg.iters, cfg.alpha, cfg.beta,
-                           early_stop=True)
+        run = build_cuda_decoder(code, cfg.algo, cfg.iters, cfg.alpha,
+                                 cfg.beta, cfg.schedule, True,
+                                 normalize=False, **quant)
 
     def decode_fn(llr: torch.Tensor):
         if llr.device.type != device.type:

@@ -1,209 +1,209 @@
-"""BP decode on the card: the wrappers of the CUDA kernels
-``csrc/bp_flood.cu`` and ``csrc/bp_layered.cu`` (port of the flooding and
-layered branches of ``tpu_ldpc/decode/pallas_bp.py::build_pallas_decoder``
-with its min-sum, exact sum-product and sumproduct-fast CN updates and its
-fixed-point quantized mode).
+"""BP decode on the card: ``build_cuda_decoder``, the counterpart of the
+JAX package's ``tpu_ldpc/decode/pallas_bp.py::build_pallas_decoder``, and
+the launch counts of its CUDA kernels (``csrc/bp_flood.cu``,
+``csrc/bp_layered.cu``, ``csrc/bp_compressed.cu``).
 
-One wrapper per (CN update, schedule, quantized):
+The builder takes the JAX builder's decoding arguments, defaults and
+refusals (``reference.check_modes``) and returns fn(llr): float32 LLRs
+(batch, n) -> (bits uint8 (batch, n), ok bool (batch,), iters_used int32
+(batch,)).  For a CPU tensor fn runs the plain PyTorch version
+(``decode/reference.py::build_decoder``, same arguments); for a CUDA
+tensor it launches its kernel on the current stream or raises -- there is
+no fallback.  The TPU-only knobs (batch_tile, exit_block, unroll,
+interpret, dtype and the VMEM budget) have no counterpart.
 
-- ``minsum_flood``         K1, flooding min-sum;
-- ``minsum_layered``       K2, layered min-sum;
-- ``sumproduct_flood``     K3, flooding exact sum-product;
-- ``sumproduct_layered``   K3, layered exact sum-product;
-- ``spfast_flood``         K4, flooding sumproduct-fast;
-- ``spfast_layered``       K4, layered sumproduct-fast;
-- ``minsum_quant_flood``   K5, flooding fixed-point min-sum;
-- ``minsum_quant_layered`` K5, layered fixed-point min-sum.
+Each launch adds one to ``LAUNCHES[fn.kernel]``, and a launch in
+normalized coordinates also to ``LAUNCHES[fn.kernel + '_normalized']``
+(shift normalization is a mode of the same kernel body).  Kernel names:
 
-Each takes float32 LLRs (batch, n) and returns (bits uint8 (batch, n),
-ok bool (batch,), iters_used int32 (batch,)).  For a CPU tensor it runs
-the plain PyTorch version (``decode/reference.py``); for a CUDA tensor it
-launches its kernel on the current stream or raises -- there is no
-fallback.  ``<wrapper>.launches`` counts its kernel launches.
+- ``minsum_flood`` / ``minsum_layered``: K1 / K2, min-sum;
+- ``sumproduct_flood`` / ``sumproduct_layered``: K3, exact sum-product;
+- ``spfast_flood`` / ``spfast_layered``: K4, sumproduct-fast;
+- ``minsum_quant_flood`` / ``minsum_quant_layered``: K5, fixed-point;
+- ``minsum_compressed_flood``: K6, compressed row state;
+- ``<one of the six float kernels>_bf16``: K7, bf16 message storage;
+- ``minsum_rescaled_flood``: K8, rescaled min-sum.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from tpu_ldpc_torch.codes.code import LdpcCode
 from tpu_ldpc_torch.codes_device import to_device
-from tpu_ldpc_torch.decode.reference import build_decoder, quant_params
+from tpu_ldpc_torch.decode.normalize import coordinates
+from tpu_ldpc_torch.decode.reference import (
+    build_decoder, is_bf16, quant_params)
 
 SMEM_LIMIT_BYTES = 232_448  # 227 KB: the most one Hopper block may use
 # ldpc::Algo in bp_common.cuh
 _ALGO_IDS = {"minsum": 0, "sumproduct": 1, "sumproduct-fast": 2}
+_ALGO_NAMES = {"minsum": "minsum", "sumproduct": "sumproduct",
+               "sumproduct-fast": "spfast"}
 
 
-def _decode(wrapper, algo: str, schedule: str, code: LdpcCode,
-            llr: torch.Tensor, iters: int, alpha: float, beta: float,
-            early_stop: bool, quant=None):
-    """quant: None, or (quant_bits, quant_step, quant_post_bits)."""
-    if llr.device.type == "cpu":
-        fn = build_decoder(code, algo, iters, alpha, beta, schedule,
-                           early_stop, *(quant or ()))
-        return fn(llr)
-    if llr.device.type != "cuda":
-        raise ValueError(f"unsupported device {llr.device}")
-    if llr.dtype != torch.float32:
-        raise TypeError(f"llr must be float32, got {llr.dtype}")
-    if llr.dim() != 2 or llr.shape[1] != code.n:
-        raise ValueError(
-            f"llr must be (batch, {code.n}), got {tuple(llr.shape)}")
-    if not llr.is_contiguous():
-        raise ValueError("llr must be contiguous")
-    if iters < 0:
-        raise ValueError(f"iters must be >= 0, got {iters}")
-    # (quantized, step, kmax, lim_msg, lim_post), checked on the host; the
-    # C entry point refuses quantization with a CN other than min-sum
+def kernel_name(algo: str, schedule: str, *, quantized: bool = False,
+                bf16: bool = False, rescaled: bool = False,
+                compressed: bool = False) -> str:
+    """The launch-count name of a kernel (module docstring)."""
+    if compressed:
+        return "minsum_compressed_flood"
+    if rescaled:
+        return "minsum_rescaled_flood"
+    sched = "flood" if schedule == "flooding" else "layered"
+    quant = "_quant" if quantized else ""
+    return (f"{_ALGO_NAMES[algo]}{quant}_{sched}"
+            f"{'_bf16' if bf16 else ''}")
+
+
+def _all_names():
+    names = []
+    for sched in ("flooding", "layered"):
+        for algo in _ALGO_IDS:
+            names += [kernel_name(algo, sched),
+                      kernel_name(algo, sched, bf16=True)]
+        names.append(kernel_name("minsum", sched, quantized=True))
+    names.append(kernel_name("minsum", "flooding", rescaled=True))
+    normalized = [f"{name}_normalized" for name in names]
+    return names + [kernel_name("minsum", "flooding", compressed=True)] \
+        + normalized
+
+
+# kernel name -> launches since the last reset_launches()
+LAUNCHES: dict[str, int] = dict.fromkeys(_all_names(), 0)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@functools.lru_cache(maxsize=64)
+def build_cuda_decoder(
+    code: LdpcCode,
+    algo: str = "minsum",
+    iters: int = 50,
+    alpha: float = 0.75,
+    beta: float = 0.0,
+    schedule: str = "flooding",
+    early_stop: bool = True,
+    *,
+    normalize: bool = True,
+    rescaled: bool = False,
+    msg_dtype=None,
+    compressed: bool = False,
+    quant_bits: int | None = None,
+    quant_step: float = 0.5,
+    quant_post_bits: int | None = None,
+):
+    """fn(llr) -> (bits, ok, iters_used) (module docstring).
+
+    normalize: run in shift-normalized coordinates (decode/normalize.py;
+      outputs unchanged; ignored with compressed).  rescaled: rescaled
+      min-sum (golden's contract).  msg_dtype=torch.bfloat16: R stored in
+      bf16.  compressed: per-check compressed row state in place of R.
+    quant_bits / quant_step / quant_post_bits: fixed-point min-sum; post
+      bits default to quant_bits + 2 (resolved by ``quant_params``)."""
+    # the plain version checks every argument combination (check_modes)
+    plain = build_decoder(code, algo, iters, alpha, beta, schedule,
+                          early_stop, quant_bits, quant_step,
+                          quant_post_bits, normalize=normalize,
+                          rescaled=rescaled, msg_dtype=msg_dtype,
+                          compressed=compressed)
+    bf16 = is_bf16(msg_dtype)
+    normalized = normalize and not compressed
+    shifts, col_off = coordinates(code, normalized)
+    name = kernel_name(algo, schedule, quantized=quant_bits is not None,
+                       bf16=bf16, rescaled=rescaled, compressed=compressed)
+    counters = (name, f"{name}_normalized") if normalized else (name,)
+    # (quantized, step, kmax, lim_msg, lim_post)
     qargs = (0, 0.0, 0.0, 0.0, 0.0)
-    if quant is not None:
-        qargs = (1, *quant_params(*quant))
+    if quant_bits is not None:
+        qargs = (1, *quant_params(quant_bits, quant_step, quant_post_bits))
+    inv_alpha = float(np.float32(1.0) / np.float32(alpha))
+    tables = {}  # device -> (effective shifts, column offsets) as int32
 
-    from tpu_ldpc_torch._build import check, load_library
+    def launch(llr: torch.Tensor):
+        from tpu_ldpc_torch._build import check, load_library
 
-    layered = schedule == "layered"
-    lib = load_library("bp_layered" if layered else "bp_flood")
-    dc = to_device(code, llr.device)
-    smem_fn = (lib.ldpc_bp_layered_smem_bytes if layered
-               else lib.ldpc_bp_flood_smem_bytes)
-    smem = smem_fn(code.Z, code.nb, dc.E)
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"{code.name}: {schedule} decoder state {smem} B exceeds the "
-            f"{SMEM_LIMIT_BYTES} B of shared memory one block may use"
-        )
-    batch = llr.shape[0]
-    bits = torch.empty((batch, code.n), dtype=torch.uint8, device=llr.device)
-    ok = torch.empty((batch,), dtype=torch.bool, device=llr.device)
-    iters_used = torch.empty((batch,), dtype=torch.int32, device=llr.device)
-    if batch == 0:
-        return bits, ok, iters_used
-    ptrs = (llr.data_ptr(), bits.data_ptr(), ok.data_ptr(),
-            iters_used.data_ptr(), dc.edge_col.data_ptr(),
-            dc.edge_shift.data_ptr(), dc.row_ptr.data_ptr())
-    tail = (int(iters), float(alpha), float(beta), int(bool(early_stop)),
-            *qargs)
-    with torch.cuda.device(llr.device):  # restores the current device
-        stream = torch.cuda.current_stream().cuda_stream
-        if layered:
-            err = lib.ldpc_bp_layered(
-                _ALGO_IDS[algo], *ptrs, batch, code.Z, code.mb, code.nb,
-                dc.E, *tail, stream)
+        lib = load_library("bp_compressed" if compressed else
+                           "bp_flood" if schedule == "flooding" else
+                           "bp_layered")
+        dc = to_device(code, llr.device)
+        if compressed:
+            smem = lib.ldpc_bp_compressed_smem_bytes(code.Z, code.mb, code.nb)
+        elif schedule == "flooding":
+            smem = lib.ldpc_bp_flood_smem_bytes(code.Z, code.nb, dc.E, bf16)
         else:
-            err = lib.ldpc_bp_flood(
-                _ALGO_IDS[algo], *ptrs, dc.col_slots.data_ptr(),
-                dc.col_deg.data_ptr(), batch, code.Z, code.mb, code.nb,
-                dc.E, int(dc.col_slots.shape[1]), *tail, stream)
-    check(lib, err, f"{wrapper.__name__} launch")
-    wrapper.launches += 1
-    return bits, ok, iters_used
+            smem = lib.ldpc_bp_layered_smem_bytes(code.Z, code.nb, dc.E, bf16)
+        if smem > SMEM_LIMIT_BYTES:
+            raise ValueError(
+                f"{code.name}: {name} decoder state {smem} B exceeds the "
+                f"{SMEM_LIMIT_BYTES} B of shared memory one block may use")
+        if llr.device not in tables:
+            tables[llr.device] = tuple(
+                torch.tensor(x, dtype=torch.int32, device=llr.device)
+                for x in (shifts, col_off))
+        eshift, coff = tables[llr.device]
+        coff_ptr = coff.data_ptr() if any(col_off) else None  # NULL: plain
+        batch = llr.shape[0]
+        bits = torch.empty((batch, code.n), dtype=torch.uint8,
+                           device=llr.device)
+        ok = torch.empty((batch,), dtype=torch.bool, device=llr.device)
+        iu = torch.empty((batch,), dtype=torch.int32, device=llr.device)
+        if batch == 0:
+            return bits, ok, iu
+        outs = (llr.data_ptr(), bits.data_ptr(), ok.data_ptr(),
+                iu.data_ptr())
+        with torch.cuda.device(llr.device):  # restores the current device
+            stream = torch.cuda.current_stream().cuda_stream
+            if compressed:
+                err = lib.ldpc_bp_compressed(
+                    *outs, dc.edge_row.data_ptr(), dc.edge_col.data_ptr(),
+                    dc.edge_shift.data_ptr(), dc.row_ptr.data_ptr(),
+                    dc.col_slots.data_ptr(), dc.col_deg.data_ptr(), batch,
+                    code.Z, code.mb, code.nb, code.layout.max_row_deg,
+                    int(dc.col_slots.shape[1]), int(iters), float(alpha),
+                    float(beta), int(bool(early_stop)), stream)
+            elif schedule == "flooding":
+                err = lib.ldpc_bp_flood(
+                    _ALGO_IDS[algo], *outs, dc.edge_col.data_ptr(),
+                    eshift.data_ptr(), dc.row_ptr.data_ptr(),
+                    dc.col_slots.data_ptr(), dc.col_deg.data_ptr(),
+                    coff_ptr, batch, code.Z, code.mb, code.nb, dc.E,
+                    int(dc.col_slots.shape[1]), int(iters), float(alpha),
+                    float(beta), int(bool(early_stop)), int(bf16),
+                    int(bool(rescaled)), inv_alpha, *qargs, stream)
+            else:
+                err = lib.ldpc_bp_layered(
+                    _ALGO_IDS[algo], *outs, dc.edge_col.data_ptr(),
+                    eshift.data_ptr(), dc.row_ptr.data_ptr(),
+                    coff_ptr, batch, code.Z, code.mb, code.nb, dc.E,
+                    int(iters), float(alpha), float(beta),
+                    int(bool(early_stop)), int(bf16), *qargs, stream)
+        check(lib, err, f"{name} launch")
+        for counter in counters:
+            LAUNCHES[counter] += 1
+        return bits, ok, iu
 
+    def decode_fn(llr: torch.Tensor):
+        if llr.device.type == "cpu":
+            return plain(llr)
+        if llr.device.type != "cuda":
+            raise ValueError(f"unsupported device {llr.device}")
+        if llr.dtype != torch.float32:
+            raise TypeError(f"llr must be float32, got {llr.dtype}")
+        if llr.dim() != 2 or llr.shape[1] != code.n:
+            raise ValueError(
+                f"llr must be (batch, {code.n}), got {tuple(llr.shape)}")
+        if not llr.is_contiguous():
+            raise ValueError("llr must be contiguous")
+        if iters < 0:
+            raise ValueError(f"iters must be >= 0, got {iters}")
+        return launch(llr)
 
-def minsum_flood(code: LdpcCode, llr: torch.Tensor, iters: int = 50,
-                 alpha: float = 0.75, beta: float = 0.0,
-                 early_stop: bool = True):
-    """K1: flooding normalized / offset min-sum (csrc/bp_flood.cu)."""
-    return _decode(minsum_flood, "minsum", "flooding", code, llr, iters,
-                   alpha, beta, early_stop)
-
-
-def minsum_layered(code: LdpcCode, llr: torch.Tensor, iters: int = 50,
-                   alpha: float = 0.75, beta: float = 0.0,
-                   early_stop: bool = True):
-    """K2: layered normalized / offset min-sum (csrc/bp_layered.cu)."""
-    return _decode(minsum_layered, "minsum", "layered", code, llr, iters,
-                   alpha, beta, early_stop)
-
-
-def sumproduct_flood(code: LdpcCode, llr: torch.Tensor, iters: int = 50,
-                     alpha: float = 0.75, beta: float = 0.0,
-                     early_stop: bool = True):
-    """K3: flooding exact sum-product (csrc/bp_flood.cu); alpha and beta
-    are ignored, as in every sum-product decoder of the repo."""
-    return _decode(sumproduct_flood, "sumproduct", "flooding", code, llr,
-                   iters, alpha, beta, early_stop)
-
-
-def sumproduct_layered(code: LdpcCode, llr: torch.Tensor, iters: int = 50,
-                       alpha: float = 0.75, beta: float = 0.0,
-                       early_stop: bool = True):
-    """K3: layered exact sum-product (csrc/bp_layered.cu); alpha and beta
-    are ignored."""
-    return _decode(sumproduct_layered, "sumproduct", "layered", code, llr,
-                   iters, alpha, beta, early_stop)
-
-
-def spfast_flood(code: LdpcCode, llr: torch.Tensor, iters: int = 50,
-                 alpha: float = 0.75, beta: float = 0.0,
-                 early_stop: bool = True):
-    """K4: flooding sumproduct-fast (csrc/bp_flood.cu); alpha and beta
-    are ignored."""
-    return _decode(spfast_flood, "sumproduct-fast", "flooding", code, llr,
-                   iters, alpha, beta, early_stop)
-
-
-def spfast_layered(code: LdpcCode, llr: torch.Tensor, iters: int = 50,
-                   alpha: float = 0.75, beta: float = 0.0,
-                   early_stop: bool = True):
-    """K4: layered sumproduct-fast (csrc/bp_layered.cu); alpha and beta
-    are ignored."""
-    return _decode(spfast_layered, "sumproduct-fast", "layered", code, llr,
-                   iters, alpha, beta, early_stop)
-
-
-def minsum_quant_flood(code: LdpcCode, llr: torch.Tensor, iters: int = 50,
-                       alpha: float = 0.75, beta: float = 0.0,
-                       early_stop: bool = True, *, quant_bits: int,
-                       quant_step: float = 0.5,
-                       quant_post_bits: int | None = None):
-    """K5: flooding fixed-point min-sum (csrc/bp_flood.cu); post bits
-    default to quant_bits + 2."""
-    return _decode(minsum_quant_flood, "minsum", "flooding", code, llr,
-                   iters, alpha, beta, early_stop,
-                   (quant_bits, quant_step, quant_post_bits))
-
-
-def minsum_quant_layered(code: LdpcCode, llr: torch.Tensor, iters: int = 50,
-                         alpha: float = 0.75, beta: float = 0.0,
-                         early_stop: bool = True, *, quant_bits: int,
-                         quant_step: float = 0.5,
-                         quant_post_bits: int | None = None):
-    """K5: layered fixed-point min-sum (csrc/bp_layered.cu); post bits
-    default to quant_bits + 2."""
-    return _decode(minsum_quant_layered, "minsum", "layered", code, llr,
-                   iters, alpha, beta, early_stop,
-                   (quant_bits, quant_step, quant_post_bits))
-
-
-# (algo, schedule, quantized) -> wrapper; a quantized wrapper takes the
-# keywords quant_bits, quant_step and quant_post_bits
-WRAPPERS = {
-    ("minsum", "flooding", False): minsum_flood,
-    ("minsum", "layered", False): minsum_layered,
-    ("sumproduct", "flooding", False): sumproduct_flood,
-    ("sumproduct", "layered", False): sumproduct_layered,
-    ("sumproduct-fast", "flooding", False): spfast_flood,
-    ("sumproduct-fast", "layered", False): spfast_layered,
-    ("minsum", "flooding", True): minsum_quant_flood,
-    ("minsum", "layered", True): minsum_quant_layered,
-}
-for _w in WRAPPERS.values():
-    _w.launches = 0
-
-
-def wrapper_for(algo: str, schedule: str, quant_bits: int | None = None,
-                quant_step: float = 0.5, quant_post_bits: int | None = None):
-    """The wrapper of (algo, schedule, quantized) as fn(code, llr, iters,
-    alpha, beta, early_stop), with the quantization keywords bound."""
-    wrapper = WRAPPERS.get((algo, schedule, quant_bits is not None))
-    if wrapper is None:
-        raise ValueError(f"no decoder for algo={algo!r}, schedule="
-                         f"{schedule!r}, quant_bits={quant_bits!r}")
-    if quant_bits is None:
-        return wrapper
-    return functools.partial(wrapper, quant_bits=quant_bits,
-                             quant_step=quant_step,
-                             quant_post_bits=quant_post_bits)
+    decode_fn.kernel = name
+    return decode_fn

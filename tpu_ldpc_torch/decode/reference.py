@@ -40,6 +40,11 @@ and the posterior saturated to the wider APP width.  In the layered
 schedule the saturation feeds only the CN: the posterior update uses the
 unsaturated q, then the APP saturation.
 
+The storage and arithmetic modes of the JAX package's Pallas builder --
+shift normalization, rescaled min-sum, bf16 message storage and the
+compressed row state -- are keyword arguments of ``build_decoder`` (its
+docstring), refused in the JAX builder's combinations (``check_modes``).
+
 Shapes: LLR (batch, n) -> internal (batch, nb, Z); R (batch, E, Z).
 """
 
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 
 from tpu_ldpc_torch.codes.code import LdpcCode
+from tpu_ldpc_torch.decode.normalize import coordinates
 
 # Sum-product stability clips, the golden model's (golden/decoder.py)
 SP_MIN_MAG = 1e-9     # lower clip on |Q| before phi()
@@ -240,6 +246,48 @@ def _syndrome_ok(P, edges, row_edges):
     return ok
 
 
+def is_bf16(msg_dtype) -> bool:
+    """True for bf16 message storage; None and torch.float32 are float32."""
+    if msg_dtype is None or msg_dtype == torch.float32:
+        return False
+    if msg_dtype == torch.bfloat16:
+        return True
+    raise ValueError(f"msg_dtype must be None, torch.float32 or "
+                     f"torch.bfloat16, got {msg_dtype!r}")
+
+
+def check_modes(code: LdpcCode, algo: str, iters: int, beta: float,
+                schedule: str, quant_bits, rescaled: bool, msg_dtype,
+                compressed: bool) -> None:
+    """Refuse what the JAX package's build_pallas_decoder refuses, with
+    its exception types and in its order (pallas_bp.py:368-381, 459-483)."""
+    if algo not in ("minsum", "sumproduct", "sumproduct-fast"):
+        raise ValueError(f"unknown algo {algo!r}")
+    if schedule not in ("flooding", "layered"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    bf16 = is_bf16(msg_dtype)
+    if rescaled and (algo != "minsum" or schedule != "flooding"
+                     or beta != 0.0 or compressed or quant_bits is not None
+                     or iters > 200 or bf16):
+        raise ValueError(
+            "rescaled decoding requires algo='minsum', schedule='flooding',"
+            " beta=0, full-precision messages, no quantization and"
+            " iters <= 200")
+    if quant_bits is not None:
+        if algo != "minsum":
+            raise ValueError("quantized decoding supports algo='minsum' only")
+        if compressed or bf16:
+            raise NotImplementedError(
+                "fixed-point quant mode excludes compressed/msg_dtype modes")
+    if compressed:
+        if algo != "minsum" or schedule != "flooding" or bf16:
+            raise NotImplementedError(
+                "compressed row state: minsum + flooding + f32 only")
+        if code.layout.max_row_deg > 8:
+            raise NotImplementedError(
+                "compressed row state packs signs into int8: row degree <= 8")
+
+
 @functools.lru_cache(maxsize=64)
 def build_decoder(
     code: LdpcCode,
@@ -252,6 +300,11 @@ def build_decoder(
     quant_bits: int | None = None,
     quant_step: float = 0.5,
     quant_post_bits: int | None = None,
+    *,
+    normalize: bool = False,
+    rescaled: bool = False,
+    msg_dtype=None,
+    compressed: bool = False,
 ):
     """Plain decoder: llr (batch, n) float32 on any device ->
     (bits uint8 (batch, n), ok bool (batch,), iters_used int32 (batch,)).
@@ -259,34 +312,75 @@ def build_decoder(
     quant_bits / quant_step / quant_post_bits: fixed-point mode (min-sum
     only; post bits default to quant_bits + 2).
 
+    The storage and arithmetic modes of the JAX package's
+    build_pallas_decoder (refused in the same combinations,
+    ``check_modes``):
+
+    - normalize: decode in the rotated coordinates of
+      ``decode/normalize.py`` (LLRs rotated per column on entry, the
+      posterior un-rotated on exit); outputs are unchanged.  Ignored with
+      ``compressed``, as in the JAX package.
+    - rescaled: golden's min-sum-rescaled contract: the CN runs with
+      alpha 1, and the channel term Ls is multiplied by fp32(1)/fp32(alpha)
+      once per iteration before the VN sum (Ls_k = Ls_{k-1} * inv).
+    - msg_dtype=torch.bfloat16: R stored rounded to bf16 (round to nearest
+      even), computed in float32.  Flooding: the CN's q and the VN sums
+      read the rounded R.  Layered: q reads the rounded R, the posterior
+      update takes the unrounded CN output, only the store rounds.
+    - compressed: flooding min-sum keeping per check (min1', min2', argmin
+      slot, sign byte) in place of R, with min' = alpha * max(min - beta,
+      0) and bit t of the byte the sign of slot t's message; R is rebuilt
+      from them, exactly, in the next CN pass and in the VN pass.
+
     ``decode_fn.posterior(llr)`` returns (P (batch, nb, Z), ok,
     iters_used) instead, for tests of the posterior itself."""
-    if algo not in ("minsum", "sumproduct", "sumproduct-fast"):
-        raise ValueError(f"unknown algo {algo!r}")
-    if schedule not in ("flooding", "layered"):
-        raise ValueError(f"unknown schedule {schedule!r}")
-    if quant_bits is not None and algo != "minsum":
-        raise ValueError("quantized decoding supports algo='minsum' only")
+    check_modes(code, algo, iters, beta, schedule, quant_bits, rescaled,
+                msg_dtype, compressed)
+    shifts, col_off = coordinates(code, normalize and not compressed)
     edges, row_edges, col_edges = _block_structure(code)
-    Z, nb, E = code.Z, code.nb, len(edges)
+    edges = [(i, j, s) for (i, j, _), s in zip(edges, shifts)]
+    Z, mb, nb, E = code.Z, code.mb, code.nb, len(edges)
+    rotated = any(col_off)
     # float32 constants, as the golden model rounds them
-    alpha = float(torch.tensor(alpha, dtype=torch.float32))
-    beta = float(torch.tensor(beta, dtype=torch.float32))
+    f32 = np.float32
+    alpha = float(f32(alpha))
+    beta = float(f32(beta))
+    inv_alpha = float(f32(1.0) / f32(alpha))
     qz = sat_msg = sat_post = None
     if quant_bits is not None:
         qz, sat_msg, sat_post = make_quantizers(quant_bits, quant_step,
                                                 quant_post_bits)
+    if is_bf16(msg_dtype):
+        def store(r):
+            return r.to(torch.bfloat16).to(torch.float32)
+    else:
+        def store(r):
+            return r
 
     def cn_update(qs):
         if algo == "minsum":
+            if rescaled:
+                return _cn_minsum(qs, 1.0, 0.0)
             outs = _cn_minsum(qs, alpha, beta)
             return outs if qz is None else [qz(o) for o in outs]
         if algo == "sumproduct-fast":
             return _cn_sumproduct_fast(qs)
         return _cn_sumproduct(qs)
 
-    def flooding_iter(L, P, R):
-        # CN pass (per block-row), R in check coordinates
+    def vn_pass(base, msg):
+        """P: base + the column's messages (msg(e), check coordinates)
+        scattered back, in ascending block-row order."""
+        cols = []
+        for j in range(nb):
+            p = base[:, j, :]
+            for e in col_edges[j]:
+                p = p + torch.roll(msg(e), edges[e][2], dims=-1)
+            cols.append(p if sat_post is None else sat_post(p))
+        return torch.stack(cols, dim=1)
+
+    def flooding_iter(L, state):
+        # state (P, R[, Ls]); R in check coordinates
+        P, R = state[:2]
         R_new = [None] * E
         for es in row_edges:
             qs = []
@@ -295,20 +389,58 @@ def build_decoder(
                 q = torch.roll(P[:, j, :], -s, dims=-1) - R[:, e, :]
                 qs.append(q if sat_msg is None else sat_msg(q))
             for e, r_out in zip(es, cn_update(qs)):
-                R_new[e] = r_out
+                R_new[e] = store(r_out)
         R_new = torch.stack(R_new, dim=1)
-        # VN pass: sequential accumulation in ascending block-row order
-        cols = []
-        for j in range(nb):
-            p = L[:, j, :]
-            for e in col_edges[j]:
-                p = p + torch.roll(R_new[:, e, :], edges[e][2], dims=-1)
-            cols.append(p if sat_post is None else sat_post(p))
-        return torch.stack(cols, dim=1), R_new
+        if rescaled:
+            Ls = state[2] * inv_alpha
+            return vn_pass(Ls, lambda e: R_new[:, e, :]), R_new, Ls
+        return vn_pass(L, lambda e: R_new[:, e, :]), R_new
 
-    def layered_iter(L, P, R):
+    def compressed_iter(L, state):
+        # state (P, M1, M2, ARG, SGN); the row state (batch, mb, Z) in
+        # check coordinates
+        P, rs = state[0], state[1:]
+
+        def reconstruct(rs, e):
+            M1, M2, ARG, SGN = rs
+            i = edges[e][0]
+            slot = e - row_edges[i][0]
+            mag = torch.where(ARG[:, i] == slot, M2[:, i], M1[:, i])
+            return torch.where((SGN[:, i] >> slot) & 1 == 1, -mag, mag)
+
+        rows = []
+        for es in row_edges:
+            qs = []
+            for e in es:
+                _, j, s = edges[e]
+                qs.append(torch.roll(P[:, j, :], -s, dims=-1)
+                          - reconstruct(rs, e))
+            mags = [q.abs() for q in qs]
+            negs = [(q < 0).to(torch.int32) for q in qs]
+            min1 = mags[0]
+            min2 = torch.full_like(min1, float("inf"))
+            argm = torch.zeros_like(min1, dtype=torch.int32)
+            for t in range(1, len(qs)):
+                new = mags[t] < min1
+                min2 = torch.where(new, min1, torch.minimum(min2, mags[t]))
+                argm = torch.where(new, t, argm)
+                min1 = torch.where(new, mags[t], min1)
+            if len(qs) == 1:
+                min2 = min1
+            total = negs[0]
+            for ng in negs[1:]:
+                total = total ^ ng
+            sgn = sum((total ^ ng) << t for t, ng in enumerate(negs))
+            rows.append((alpha * torch.clamp_min(min1 - beta, 0.0),
+                         alpha * torch.clamp_min(min2 - beta, 0.0), argm,
+                         sgn))
+        rs = tuple(torch.stack(x, dim=1) for x in zip(*rows))
+        return (vn_pass(L, lambda e: reconstruct(rs, e)), *rs)
+
+    def layered_iter(L, state):
         # block-rows in ascending order, the posterior updated in place
         # (on lists of column / edge tensors, so the inputs stay intact)
+        P, R = state
         cols, msgs = list(P.unbind(1)), list(R.unbind(1))
         for es in row_edges:
             qs_raw = []
@@ -320,41 +452,70 @@ def build_decoder(
             qs = qs_raw if sat_msg is None else [sat_msg(q) for q in qs_raw]
             for e, q, r_out in zip(es, qs_raw, cn_update(qs)):
                 _, j, s = edges[e]
-                p_new = q + r_out
+                p_new = q + r_out  # the unrounded message, as the kernel
                 if sat_post is not None:
                     p_new = sat_post(p_new)
                 cols[j] = torch.roll(p_new, s, dims=-1)
-                msgs[e] = r_out
+                msgs[e] = store(r_out)
         return torch.stack(cols, dim=1), torch.stack(msgs, dim=1)
 
-    iteration = flooding_iter if schedule == "flooding" else layered_iter
+    def rotate(X, sign):
+        """Per-column roll by sign * col_off: -1 into the rotated
+        coordinates, +1 back."""
+        return torch.stack([torch.roll(X[:, j, :], sign * c, dims=-1)
+                            for j, c in enumerate(col_off)], dim=1)
+
+    def init_state(L):
+        batch = L.shape[0]
+
+        def zeros(rows, dtype=torch.float32):
+            return torch.zeros((batch, rows, Z), dtype=dtype,
+                               device=L.device)
+
+        if compressed:
+            return (L, zeros(mb), zeros(mb), zeros(mb, torch.int32),
+                    zeros(mb, torch.int32))
+        if rescaled:
+            return L, zeros(E), L
+        return L, zeros(E)
+
+    if compressed:
+        iteration = compressed_iter
+    elif schedule == "flooding":
+        iteration = flooding_iter
+    else:
+        iteration = layered_iter
+
+    def decode_posterior(L):
+        batch = L.shape[0]
+        state = init_state(L)
+        if early_stop:
+            done = _syndrome_ok(state[0], edges, row_edges)
+            iu = torch.where(done, 0, iters).to(torch.int32)
+            for it in range(1, iters + 1):
+                if bool(done.all()):
+                    break  # every codeword frozen: the rest is a no-op
+                keep = done[:, None, None]
+                state = tuple(torch.where(keep, old, new) for old, new
+                              in zip(state, iteration(L, state)))
+                ok_now = _syndrome_ok(state[0], edges, row_edges)
+                iu = torch.where(ok_now & ~done, it, iu).to(torch.int32)
+                done = done | ok_now
+            return state[0], done, iu
+        for _ in range(iters):
+            state = iteration(L, state)
+        iu = torch.full((batch,), iters, dtype=torch.int32, device=L.device)
+        return state[0], _syndrome_ok(state[0], edges, row_edges), iu
 
     def posterior(llr: torch.Tensor):
         llr = llr.to(torch.float32)
         if qz is not None:
             llr = qz(llr)  # channel-entry quantization
-        batch = llr.shape[0]
-        L = llr.reshape(batch, nb, Z)
-        P = L
-        R = torch.zeros((batch, E, Z), dtype=torch.float32, device=llr.device)
-        if early_stop:
-            done = _syndrome_ok(P, edges, row_edges)
-            iu = torch.where(done, 0, iters).to(torch.int32)
-            for it in range(1, iters + 1):
-                if bool(done.all()):
-                    break  # every codeword frozen: the rest is a no-op
-                P_new, R_new = iteration(L, P, R)
-                keep = done[:, None, None]
-                P = torch.where(keep, P, P_new)
-                R = torch.where(keep, R, R_new)
-                ok_now = _syndrome_ok(P, edges, row_edges)
-                iu = torch.where(ok_now & ~done, it, iu).to(torch.int32)
-                done = done | ok_now
-            return P, done, iu
-        for _ in range(iters):
-            P, R = iteration(L, P, R)
-        iu = torch.full((batch,), iters, dtype=torch.int32, device=llr.device)
-        return P, _syndrome_ok(P, edges, row_edges), iu
+        L = llr.reshape(llr.shape[0], nb, Z)
+        if not rotated:
+            return decode_posterior(L)
+        P, ok, iu = decode_posterior(rotate(L, -1))
+        return rotate(P, 1), ok, iu
 
     def decode_fn(llr: torch.Tensor):
         P, ok, iu = posterior(llr)

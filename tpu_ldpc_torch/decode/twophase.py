@@ -30,19 +30,7 @@ import numpy as np
 import torch
 
 from tpu_ldpc_torch.codes.code import LdpcCode
-
-
-def _et_decoder(code, iters, algo, alpha, beta, schedule, quant_bits=None,
-                quant_step=0.5, quant_post_bits=None):
-    """Single-pass ET decoder fn(llr): the kernel wrapper of
-    (algo, schedule, quantized), which runs its plain version for CPU
-    tensors."""
-    from tpu_ldpc_torch.decode.cuda_bp import wrapper_for
-
-    wrapper = wrapper_for(algo, schedule, quant_bits, quant_step,
-                          quant_post_bits)
-    return functools.partial(wrapper, code, iters=iters, alpha=alpha,
-                             beta=beta, early_stop=True)
+from tpu_ldpc_torch.decode.cuda_bp import build_cuda_decoder
 
 
 @functools.lru_cache(maxsize=32)
@@ -58,9 +46,7 @@ def build_twophase_decoder(
     alpha: float = 0.75,
     beta: float = 0.0,
     schedule: str = "flooding",
-    quant_bits: int | None = None,
-    quant_step: float = 0.5,
-    quant_post_bits: int | None = None,
+    **decoder_kw,
 ):
     """Two-phase ET decoder: llr (batch, n) float32 -> (bits, ok,
     iters_used), bit-identical to the single-pass ET decoder with `iters`
@@ -78,9 +64,10 @@ def build_twophase_decoder(
       budget.
     phase1_alpha: run phase 1 with another normalization constant; the
       output is then NOT bit-identical to any single-pass decoder.
-    quant_bits / quant_step / quant_post_bits: fixed-point min-sum in
-      both phases (decode/reference.py), still bit-identical to
-      single-pass ET.
+    decoder_kw: the mode keywords of ``build_cuda_decoder`` (normalize,
+      rescaled, msg_dtype, compressed, quant_bits / quant_step /
+      quant_post_bits), the same in both phases, as the JAX package's
+      decoder_kw; still bit-identical to single-pass ET under them.
 
     Whether phase 2 is compacted or runs on the full batch is decided on
     the host: n_unconv is read once per call (one device-to-host copy and
@@ -90,9 +77,10 @@ def build_twophase_decoder(
     phase1_iters = min(int(phase1_iters), int(iters))
     budget = int(budget)
     alpha1 = alpha if phase1_alpha is None else float(phase1_alpha)
-    quant = (quant_bits, quant_step, quant_post_bits)
-    f1 = _et_decoder(code, phase1_iters, algo, alpha1, beta, schedule, *quant)
-    f2 = _et_decoder(code, int(iters), algo, alpha, beta, schedule, *quant)
+    f1 = build_cuda_decoder(code, algo, phase1_iters, alpha1, beta,
+                            schedule, True, **decoder_kw)
+    f2 = build_cuda_decoder(code, algo, int(iters), alpha, beta, schedule,
+                            True, **decoder_kw)
     warned = {"fired": False}
 
     def decode_fn(llr: torch.Tensor):
@@ -150,7 +138,7 @@ def tune_phase1_iters(code: LdpcCode, ebn0_db: float, batch: int = 4096,
     u = torch.randint(0, 2, (batch, k), generator=gen, device=device,
                       dtype=torch.uint8)
     llr = awgn_llrs(encode_fn(u), ebn0_db, k / code.n, gen).contiguous()
-    dec = _et_decoder(code, int(iters), algo, alpha, beta, schedule)
+    dec = build_cuda_decoder(code, algo, int(iters), alpha, beta, schedule)
     _, ok, iu = (x.cpu().numpy() for x in dec(llr))
     # lanes that never converge report iu == iters and are stragglers
     # at every K < iters; the budget must cover them
