@@ -15,8 +15,10 @@ through decode(), two-phase, run_ber against the frozen quantized rows
 and the CLI's Eb/N0-at-FER search; slice 4: build_cuda_decoder's storage
 and arithmetic modes (compressed row state, bf16 messages, rescaled
 min-sum, shift normalization) against the float32 decoder, two-phase
-under bf16 and decode() in the code's own coordinates -- times kernels and
-plain versions with CUDA events, and prints:
+under bf16 and decode() in the code's own coordinates; slice 5: the
+redesigned flooding body on one code per row-degree bucket (and its
+two-pass form), with ptxas's registers and spills of every instantiation
+-- times kernels and plain versions with CUDA events, and prints:
 
   - one line per phase;
   - the card's name and power limit (nvidia-smi);
@@ -171,6 +173,43 @@ def _kind(algo, mode):
     return algo
 
 
+def _ptxas_report(log):
+    """[(mangled kernel name, registers, spill bytes stored + loaded)]
+    from nvcc -Xptxas -v output."""
+    import re
+
+    out, name, spills = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spills))
+            name = None
+    return out
+
+
+def _instantiation(mangled):
+    """A readable name for a bp_flood_kernel instantiation (its CN update,
+    quantization, message storage, rescaled flag and kMaxDeg); other
+    kernels keep their mangled name."""
+    import re
+
+    if "bp_flood_kernel" not in mangled:
+        return mangled
+    parts = [re.search(pat, mangled).group(1) for pat in (
+        r"\d(MinSumUnit|MinSum|SumProductFast|SumProduct)E",
+        r"\d(NoQuant|Quant)E", r"\d(F32Msg|Bf16Msg)E")]
+    rescaled, max_deg = re.search(r"Lb([01])ELi(\d+)E", mangled).groups()
+    return (f"bp_flood_kernel<{', '.join(parts)}, rescaled={rescaled}, "
+            f"kMaxDeg={max_deg}>")
+
+
 def _noisy_llrs(code, batch, ebn0_db, seed):
     """(batch, n) float32 LLRs of random codewords, made with NumPy."""
     import numpy as np
@@ -296,6 +335,7 @@ def main() -> int:
     from tpu_ldpc_torch.decode import decode
     from tpu_ldpc_torch.decode.cuda_bp import (
         LAUNCHES, build_cuda_decoder, reset_launches)
+    from tpu_ldpc_torch.decode.flood_plan import flood_plan
     from tpu_ldpc_torch.decode.knobs import resolve_twophase_knobs
     from tpu_ldpc_torch.decode.normalize import coordinates
     from tpu_ldpc_torch.decode.reference import build_decoder
@@ -342,10 +382,18 @@ def main() -> int:
     print(f"[2 build] {sorted(_build.sources())} in "
           f"{time.perf_counter() - t0:.2f} s (parallel nvcc "
           f"{_build.build_seconds:.2f} s)")
+    judged_flood = 0  # the judged code's flooding instantiations (8 slots)
     for src, log in sorted(_build.build_log.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[2 build] {src} ptxas: {line.strip()}")
+        for kname, regs, spills in _ptxas_report(log):
+            print(f"[2 build] {src} ptxas: {_instantiation(kname)}: {regs} "
+                  f"registers, {spills} bytes spill stores + loads")
+            if "kMaxDeg=8" in _instantiation(kname):
+                judged_flood += 1
+                if spills:
+                    raise AssertionError(f"{kname}: ptxas spills {spills} B")
+    if not judged_flood:
+        raise AssertionError("no ptxas report of bp_flood's 8-slot "
+                             "instantiations (delete build/ to rebuild)")
 
     # ---- 3. kernels vs plain versions on the card --------------------------
     t_phase = time.perf_counter()
@@ -491,6 +539,52 @@ def main() -> int:
                           f" of {code.layout.E} shifts 0 (unnormalized "
                           f"{sum(s == 0 for s in coordinates(code, False)[0])}"
                           ")")
+
+    # the flooding body's instantiations by row-degree bucket (kMaxDeg,
+    # decode/flood_plan.py): the codes above cover 8 (judged), 16 (wifi
+    # 2/3) and 32 (wimax 5/6 Z=96); here the largest row of each bucket,
+    # wifi 3/4 Z=27 (16 of 16) and wimax 5/6 Z=48 (20 of 32), and the
+    # two-pass kernel (kMaxDeg = 0) on wimax 1/2 Z=96 (1152 checks, more
+    # than a one-pass block holds) and a row of degree 40.  Bit-exact
+    # modes, ET on and off, b=1024
+    wide_B = np.full((2, 40), -1)
+    wide_B[0, :] = np.arange(40) % 5
+    wide_B[1, :4] = [1, 2, 3, 4]
+    bucket_cases = [
+        (LdpcCode.from_family("wifi", "3/4", 27), 2.5),
+        (LdpcCode.from_family("wimax", "5/6", 48), 3.0),
+        (LdpcCode.from_family("wimax", "1/2", 96), 2.0),
+        (LdpcCode.from_base_graph(wide_B, 5, "deg40"), 4.0),
+    ]
+    for ci, (code, ebn0) in enumerate(bucket_cases):
+        plan = flood_plan(code, coordinates(code, False)[0])
+        if code.name == "deg40":  # H is rank-deficient: the zero codeword
+            rng = np.random.default_rng(SEED + 20)
+            sigma2 = 1.0 / (2 * 0.5 * 10 ** (ebn0 / 10))
+            base = (2.0 / sigma2 * (1.0 + np.sqrt(sigma2) * rng.normal(
+                size=(1024, code.n)))).astype(np.float32)
+        else:
+            base = _noisy_llrs(code, 1024, ebn0, SEED + 20 + ci)
+        for label, llr_np in ((f"{ebn0} dB b=1024", base),
+                              ("+-0.0/1e4 b=1024", _special_llrs(base, SEED))):
+            llr = torch.from_numpy(np.ascontiguousarray(llr_np)).to(dev)
+            for kname, q in (("minsum_flood", {}), ("spfast_flood", {}),
+                             ("minsum_quant_flood", Q6),
+                             ("minsum_flood_bf16", {}),
+                             ("minsum_rescaled_flood", {})):
+                for et in (True, False):
+                    got = kernel(kname, code, 50, et, **q)(llr)
+                    want = plain(kname, code, 50, et, **q)(llr)
+                    err, _ = _diff(got, want)
+                    max_abs_err[kname] = max(max_abs_err[kname], err)
+                    what = (f"{kname} {code.name} kMaxDeg={plan.bucket} "
+                            f"threads={plan.threads} {label} et={et}")
+                    if err:
+                        raise AssertionError(f"{what}: kernel != plain "
+                                             f"(max |diff| {err})")
+                    print(f"[3 bucket] {what}: bit-exact, "
+                          f"ok={float(got[1].float().mean()):.4f} "
+                          f"mean_iters={float(got[2].double().mean()):.3f}")
     print(f"[3] wall {time.perf_counter() - t_phase:.2f} s")
 
     # ---- 4. main paths (counts set to 0 before each, read after) ----------

@@ -1,20 +1,23 @@
-"""Time the flooding and layered min-sum kernels (K1, K2) of
-tpu_ldpc_torch in several copies of the repository on one card, in turns,
-for A/B comparisons of two commits in one run.
+"""Time the flooding kernel's instantiations (K1, K3, K4, K5, K7 min-sum,
+K8 and the normalized K1) and, as controls, the layered min-sum and
+fixed-point kernels (K2, K5 layered) of tpu_ldpc_torch in several copies
+of the repository on one card, in turns, for A/B comparisons of commits
+in one run.
 
     mkdir -p build/ab/base
     git archive <base commit> tpu_ldpc_torch | tar -x -C build/ab/base
     python scripts/torch_ab_time.py build/ab/base . . build/ab/base
 
 Each argument is a directory holding a ``tpu_ldpc_torch`` package with
-``decode.cuda_bp.build_cuda_decoder``; each is timed in a process of its
-own (which builds that copy's kernels into its own ``build/``), in the
-order given, so base, change, change, base puts both under the same card
-state.  Judged (1024, 512) code, batch 4096, ET off, K1 at 50 and K2 at
-25 iterations, in plain coordinates (K1, K2) and normalized (K1n, K2n);
-five rounds of 20 launches each between CUDA events.  Prints the card's
-name and power limit, then one JSON line per copy: {kernel: [median ms,
-[the five rounds]]}.
+``decode.cuda_bp.build_cuda_decoder``.  First every copy builds its
+kernels into its own ``build/``, all copies at once; then each is timed
+in a process of its own, in the order given, so base, change, change,
+base puts both under the same card state.  Judged (1024, 512) code,
+batch 4096, ET off, flooding at 50 and layered at 25 iterations, in the
+code's own coordinates but K9 (the normalized K1), K5 at 6 bits, step
+0.25; five rounds of 20 launches each between CUDA events.  Prints the
+card's name and power limit, one JSON line per copy: {"tree": ...,
+kernel: [median ms, [the five rounds]]}, and a table of the medians.
 """
 
 from __future__ import annotations
@@ -27,10 +30,33 @@ import sys
 BATCH = 4096
 ROUNDS = 5
 REPS = 20
+# name: (algo, schedule, iterations, build_cuda_decoder keywords)
+KERNELS = {
+    "K1 minsum_flood": ("minsum", "flooding", 50, {}),
+    "K3 sumproduct_flood": ("sumproduct", "flooding", 50, {}),
+    "K4 spfast_flood": ("sumproduct-fast", "flooding", 50, {}),
+    "K5 minsum_quant_flood": ("minsum", "flooding", 50,
+                              {"quant_bits": 6, "quant_step": 0.25}),
+    "K7 minsum_flood_bf16": ("minsum", "flooding", 50, {"msg_dtype": "bf16"}),
+    "K8 minsum_rescaled_flood": ("minsum", "flooding", 50, {"rescaled": True}),
+    "K9 minsum_flood_normalized": ("minsum", "flooding", 50,
+                                   {"normalize": True}),
+    "K2 minsum_layered": ("minsum", "layered", 25, {}),
+    "K5 minsum_quant_layered": ("minsum", "layered", 25,
+                                {"quant_bits": 6, "quant_step": 0.25}),
+}
+
+
+def _build_tree(tree: str) -> None:
+    """Runs inside a child process: build the copy's kernels."""
+    sys.path.insert(0, tree)
+    from tpu_ldpc_torch import _build
+
+    _build.load_all()
 
 
 def _time_tree(tree: str) -> dict:
-    """Runs inside the child process: time the copy under `tree`."""
+    """Runs inside a child process: time the copy under `tree`."""
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -50,12 +76,12 @@ def _time_tree(tree: str) -> dict:
         1.0 + np.sqrt(sigma2) * rng.normal(size=(BATCH, code.n))))
         .astype(np.float32)).cuda()
     fns = {}
-    for norm, tag in ((False, ""), (True, "n")):
-        for name, iters, sched in (("K1", 50, "flooding"),
-                                   ("K2", 25, "layered")):
-            fns[name + tag] = build_cuda_decoder(
-                code, "minsum", iters, 0.75, 0.0, sched, False,
-                normalize=norm)
+    for name, (algo, sched, iters, kw) in KERNELS.items():
+        kw = {"normalize": False, **kw}
+        if kw.get("msg_dtype") == "bf16":
+            kw["msg_dtype"] = torch.bfloat16
+        fns[name] = build_cuda_decoder(code, algo, iters, 0.75, 0.0, sched,
+                                       False, **kw)
 
     def ms(fn):
         start = torch.cuda.Event(enable_timing=True)
@@ -82,6 +108,9 @@ def main(argv=None) -> int:
     if argv[:1] == ["--one"]:
         print(json.dumps({"tree": argv[1], **_time_tree(argv[1])}))
         return 0
+    if argv[:1] == ["--build"]:
+        _build_tree(argv[1])
+        return 0
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -89,15 +118,31 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
-    for tree in argv:
+    here = os.path.abspath(__file__)
+    trees = [os.path.abspath(tree) for tree in argv]
+    builds = {tree: subprocess.Popen(
+        [sys.executable, here, "--build", tree], cwd=tree,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for tree in dict.fromkeys(trees)}
+    for tree, proc in builds.items():
+        out = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            raise RuntimeError(f"{tree}: build failed\n{out[-4000:]}")
+    medians = []
+    for tree in trees:
         # the child imports tpu_ldpc_torch from `tree` alone
         out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--one",
-             os.path.abspath(tree)], capture_output=True, text=True,
-            timeout=600, cwd=os.path.abspath(tree))
+            [sys.executable, here, "--one", tree], capture_output=True,
+            text=True, timeout=600, cwd=tree)
         if out.returncode:
             raise RuntimeError(f"{tree}: {out.stderr[-4000:]}")
-        print(out.stdout.strip().splitlines()[-1], flush=True)
+        line = out.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        medians.append(json.loads(line))
+    print("median ms | " + " | ".join(argv))
+    for name in KERNELS:
+        print(f"{name} | " + " | ".join(f"{row[name][0]:.4f}"
+                                         for row in medians))
     return 0
 
 

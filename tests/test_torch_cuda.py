@@ -25,6 +25,8 @@ from tpu_ldpc_torch import LdpcCode
 from tpu_ldpc_torch.decode import decode
 from tpu_ldpc_torch.decode.cuda_bp import (
     LAUNCHES, build_cuda_decoder, kernel_name)
+from tpu_ldpc_torch.decode.flood_plan import flood_plan
+from tpu_ldpc_torch.decode.normalize import coordinates
 from tpu_ldpc_torch.decode.reference import build_decoder
 from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
 
@@ -209,9 +211,10 @@ def test_quant_kernels_bitexact_vs_plain_and_golden(cuda, family, rate, Z,
 
 def test_quant_kernel_refuses_other_algos(cuda):
     """The C entry points return cudaErrorInvalidValue for quantization
-    with a CN other than min-sum or with bf16 messages, rescaled min-sum
-    with another CN, and compressed rows of degree > 8; the Python entry
-    points raise first."""
+    with a CN other than min-sum, with bf16 messages or with a step that
+    is not a power of two, rescaled min-sum with another CN, a flooding
+    block size or bucket the code does not fit, and compressed rows of
+    degree > 8; the Python entry points raise first."""
     from tpu_ldpc_torch._build import load_library
     from tpu_ldpc_torch.codes_device import to_device
 
@@ -240,16 +243,28 @@ def test_quant_kernel_refuses_other_algos(cuda):
             code.nb, dc.E, 5, 0.75, 0.0, 1, bf16, 1, 0.25, 31.0, 7.75, 31.75,
             stream)
         assert err != 0
+    # the quantized layered kernel also refuses a step that is not a power
+    # of two (its quantizer multiplies by the exact reciprocal)
+    err = lib.ldpc_bp_layered(
+        0, *io, dc.edge_col.data_ptr(), dc.edge_shift.data_ptr(),
+        dc.row_ptr.data_ptr(), zeros.data_ptr(), 4, code.Z, code.mb,
+        code.nb, dc.E, 5, 0.75, 0.0, 1, 0, 1, 0.3, 31.0, 9.3, 37.2, stream)
+    assert err != 0
     lib = load_library("bp_flood")
-    for algo, bf16, rescaled, quantized in ((2, 0, 0, 1), (1, 0, 1, 0),
-                                            (0, 1, 1, 0), (0, 0, 1, 1)):
+    plan = flood_plan(code, tuple(int(s) for s in code.layout.edge_shift))
+    tabs = [torch.from_numpy(np.array(x)).to(cuda).data_ptr()
+            for x in plan.tables().values()]
+    for algo, bf16, rescaled, quantized, step, bucket, threads in (
+            (2, 0, 0, 1, 0.25, 8, 512), (1, 0, 1, 0, 0.25, 8, 512),
+            (0, 1, 1, 0, 0.25, 8, 512), (0, 0, 1, 1, 0.25, 8, 512),
+            (0, 0, 0, 1, 0.3, 8, 512),  # step not a power of two
+            (0, 0, 0, 0, 0.25, 8, 256),  # fewer threads than checks
+            (0, 0, 0, 0, 0.25, 8, 500),  # not whole warps
+            (0, 0, 0, 0, 0.25, 12, 512)):  # no such bucket
         err = lib.ldpc_bp_flood(
-            algo, *io, dc.edge_col.data_ptr(), dc.edge_shift.data_ptr(),
-            dc.row_ptr.data_ptr(), dc.col_slots.data_ptr(),
-            dc.col_deg.data_ptr(), zeros.data_ptr(), 4, code.Z, code.mb,
-            code.nb, dc.E, int(dc.col_slots.shape[1]), 5, 0.75, 0.0, 1,
-            bf16, rescaled, 1.0 / 0.75, quantized, 0.25, 31.0, 7.75, 31.75,
-            stream)
+            algo, *io, *tabs, None, 4, code.Z, code.mb, code.nb, dc.E,
+            bucket, threads, 5, 0.75, 0.0, 1, bf16, rescaled, 1.0 / 0.75,
+            quantized, step, 31.0, 7.75, 31.75, stream)
         assert err != 0
     lib = load_library("bp_compressed")
     err = lib.ldpc_bp_compressed(
@@ -456,3 +471,60 @@ def test_slice4_twophase_on_card(cuda):
         *got, n_unconv = fn(llr)
         assert 0 < n_unconv <= 512
         assert_same(got, single)
+
+
+# ---- slice 5: the flooding body by row-degree bucket ----
+
+def wide_codes():
+    """A row of degree 40 (above the largest bucket, 32): the two-pass
+    kernel."""
+    B = np.full((2, 40), -1)
+    B[0, :] = np.arange(40) % 5
+    B[1, :4] = [1, 2, 3, 4]
+    return (JaxLdpcCode.from_base_graph(B, 5, "deg40"),
+            LdpcCode.from_base_graph(B, 5, "deg40"))
+
+
+BUCKET_CODES = [("judged", "1/2", 64, 2.0, 8), ("wifi", "3/4", 27, 2.5, 16),
+                ("wimax", "5/6", 48, 3.0, 32), ("wimax", "1/2", 96, 2.0, 0),
+                ("deg40", None, 5, 4.0, 0)]
+
+
+@pytest.mark.parametrize("family,rate,Z,ebn0,bucket", BUCKET_CODES)
+def test_flood_buckets_vs_plain_and_golden(cuda, family, rate, Z, ebn0,
+                                           bucket):
+    """One code per instantiation of the flooding body: judged (row
+    degree 7 -> 8 slots), wifi 3/4 Z=27 (16 -> 16), wimax 5/6 Z=48 (20 ->
+    32), and the two-pass kernel for 1152 checks and for a row of degree
+    40.  Min-sum, sumproduct-fast and fixed-point, in plain and
+    normalized coordinates, ET on and off, the +-0.0 and 1e4 rows
+    included: bit-exact with the plain version and with golden float32
+    (golden's per-frame loops are slow: its first rows)."""
+    if family == "deg40":
+        ref, code = wide_codes()
+        rng = np.random.default_rng(4)
+        llr_np = (2.0 + 1.5 * rng.normal(size=(257, code.n))).astype(
+            np.float32)
+        llr_np[1, ::3] = -0.0
+        llr_np[2, ::5] = 1e4
+    else:
+        ref, code = codes(family, rate, Z)
+        llr_np = special_llrs(code, ebn0)
+    assert flood_plan(code, coordinates(code, False)[0]).bucket == bucket
+    llr = torch.from_numpy(llr_np).to(cuda)
+    for algo, q in (("minsum", {}), ("sumproduct-fast", {}),
+                    ("minsum", dict(quant_bits=6, quant_step=0.25))):
+        for normalize in (False, True):
+            for early_stop in (True, False):
+                args = (code, algo, 50, 0.75, 0.0, "flooding", early_stop)
+                fn = build_cuda_decoder(*args, normalize=normalize, **q)
+                before = LAUNCHES[fn.kernel]
+                got = fn(llr)
+                assert LAUNCHES[fn.kernel] == before + 1
+                assert_same(got, build_decoder(*args, normalize=normalize,
+                                               **q)(llr))
+                assert_same([x[:GOLDEN_ROWS] for x in got], golden_decode(
+                    ref.H, llr_np[:GOLDEN_ROWS], algo=algo, iters=50,
+                    alpha=0.75, dtype=np.float32, early_stop=early_stop,
+                    **q))
+

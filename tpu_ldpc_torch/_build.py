@@ -10,8 +10,9 @@ is missing, all at once, and waits for them all:
 
 A library lands in ``build/tpu_ldpc_torch/lib<name>_<hash>.so`` at the
 repository root, named by a hash of its source, the shared headers
-(``csrc/*.cuh``) and the flags, so a change rebuilds.  A failed build
-raises with nvcc's output; there is no fallback.
+(``csrc/*.cuh``) and the flags, so a change rebuilds; nvcc's output (the
+ptxas report) beside it in ``<lib>.log``.  A failed build raises with
+nvcc's output; there is no fallback.
 """
 
 from __future__ import annotations
@@ -35,7 +36,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-build_log: dict[str, str] = {}  # per source: nvcc's output (ptxas report)
+# per loaded source: nvcc's output (ptxas report), from this build or the
+# log kept beside an existing library
+build_log: dict[str, str] = {}
 build_seconds = 0.0  # wall time of the parallel build; 0.0 when all were built
 
 
@@ -96,6 +99,8 @@ def _build_missing() -> None:
             failed.append(f"nvcc failed (rc={proc.returncode}): "
                           f"{' '.join(cmd)}\n{build_log[name]}")
         else:
+            with open(f"{out}.log", "w") as f:
+                f.write(build_log[name])
             os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     if failed:
@@ -108,16 +113,18 @@ def _declare(lib) -> None:
         lib.ldpc_bp_flood.argtypes = [
             i,                   # algo
             p, p, p, p,          # llr, bits, ok, iters_used
-            p, p, p, p, p,       # edge_col, edge_shift, row_ptr, col_slots, col_deg
+            p, p, p, p,          # vn_info, cn_p, cn_r, cn_deg
+            p, p, p, p,          # row_ptr, e_p, e_r, e_shift
             p,                   # col_off
-            i, i, i, i, i, i,    # batch, Z, mb, nb, E, max_col_deg
+            i, i, i, i, i,       # batch, Z, mb, nb, E
+            i, i,                # bucket, threads
             i, f, f, i,          # iters, alpha, beta, early_stop
             i, i, f,             # msg_bf16, rescaled, inv_alpha
             i, f, f, f, f,       # quantized, step, kmax, lim_msg, lim_post
             p,                   # stream
         ]
         lib.ldpc_bp_flood.restype = ctypes.c_int
-        lib.ldpc_bp_flood_smem_bytes.argtypes = [i, i, i, i]
+        lib.ldpc_bp_flood_smem_bytes.argtypes = [i, i, i, i, i, i]
         lib.ldpc_bp_flood_smem_bytes.restype = ctypes.c_size_t
     if hasattr(lib, "ldpc_bp_layered"):
         lib.ldpc_bp_layered.argtypes = [
@@ -164,6 +171,9 @@ def load_library(name: str):
                 _build_missing()
             lib = ctypes.CDLL(path)
             _declare(lib)
+            if name not in build_log and os.path.exists(f"{path}.log"):
+                with open(f"{path}.log") as f:
+                    build_log[name] = f.read()
             _libs[name] = lib
         return _libs[name]
 

@@ -4,13 +4,17 @@
 // message-storage policies, all as template parameters, and the
 // compressed row state's pack and reconstruct.
 //
-// A CN update is run by one thread over one check's edges in edge order,
-// in two passes that see the same q values (the caller recomputes q from
-// the same operands, so it rounds the same):
-//   cn.add(t, q)   pass 1, slot t = 0 .. deg-1 of the row;
-//   cn.finish(deg) after pass 1;
-//   cn.out(t, q)   pass 2: the CN->VN message of slot t.
-// So no per-row array is kept and the row degree is unbounded.
+// A CN update is run by one thread over one check's edges in edge order:
+//   cn.add(t, q)   slot t = 0 .. deg-1 of the row, in order;
+//   cn.finish(deg) after the last add;
+//   cn.out(t, q)   the CN->VN message of slot t, for the same q.
+// A caller may run add and out in two passes that recompute q from the
+// same operands (bp_layered.cu, and bp_flood.cu for rows of unbounded
+// degree), or keep the row's q in registers and run them in one pass
+// (bp_flood.cu).  A one-pass caller goes through add_kept / out_kept,
+// which let a CN update keep one value per edge beside q (exact
+// sum-product keeps phi(|q|), so it evaluates phi twice per edge, not
+// three times, on the same arguments).
 //
 // Signs read `q < 0` (so -0.0 is positive) and messages are formed as
 // (total_sign * own_sign) * magnitude, as golden and the plain PyTorch
@@ -70,9 +74,12 @@ __device__ __forceinline__ int count_violations(const float* P,
 
 // Normalized / offset min-sum: the golden sequential two-min scan with
 // first-occurrence argmin; a single-edge row sends its own magnitude.
+// finish() scales the two minima once per row (s1, s2) and out() selects
+// between them: the same operations on the same inputs as scaling the
+// selected minimum per edge, so the same floats.
 struct MinSum {
   float alpha, beta;
-  float min1, min2;
+  float min1, min2, s1, s2;
   int argmin, neg;
 
   __device__ __forceinline__ void begin() {
@@ -96,6 +103,8 @@ struct MinSum {
   }
   __device__ __forceinline__ void finish(int deg) {
     if (deg == 1) min2 = min1;
+    s1 = scaled(min1);
+    s2 = scaled(min2);
   }
   // alpha * max(m - beta, 0): the magnitude sent for a scan minimum m
   __device__ __forceinline__ float scaled(float m) const {
@@ -104,7 +113,7 @@ struct MinSum {
   __device__ __forceinline__ float out(int t, float q) const {
     const float total_sign = neg ? -1.0f : 1.0f;
     const float sign = q < 0.0f ? -1.0f : 1.0f;
-    return (total_sign * sign) * scaled(t == argmin ? min2 : min1);
+    return (total_sign * sign) * (t == argmin ? s2 : s1);
   }
 };
 
@@ -158,16 +167,22 @@ struct SumProduct {
     tot = 0.0f;
     neg = 0;
   }
-  __device__ __forceinline__ void add(int t, float q) {
+  // add / out with phi(|q|) handed over: the one-pass form (add_kept)
+  __device__ __forceinline__ float add_phi(int t, float q) {
     const float ph = phi(fabsf(q));
     neg ^= q < 0.0f;
     tot = t == 0 ? ph : tot + ph;  // the first term as is: -0.0 stays -0.0
+    return ph;
   }
-  __device__ __forceinline__ void finish(int) {}
-  __device__ __forceinline__ float out(int, float q) const {
+  __device__ __forceinline__ float out_phi(float q, float ph) const {
     const float total_sign = neg ? -1.0f : 1.0f;
     const float sign = q < 0.0f ? -1.0f : 1.0f;
-    return (total_sign * sign) * phi(tot - phi(fabsf(q)));
+    return (total_sign * sign) * phi(tot - ph);
+  }
+  __device__ __forceinline__ void add(int t, float q) { add_phi(t, q); }
+  __device__ __forceinline__ void finish(int) {}
+  __device__ __forceinline__ float out(int, float q) const {
+    return out_phi(q, phi(fabsf(q)));
   }
 };
 
@@ -246,6 +261,27 @@ struct SumProductFast {
   }
 };
 
+// The one-pass form of a CN update: add_kept returns one value per edge
+// that the caller keeps beside q and hands to out_kept.  Nothing is kept
+// but for exact sum-product, whose out reuses phi(|q|) from add.
+template <class CN>
+__device__ __forceinline__ float add_kept(CN& cn, int t, float q) {
+  cn.add(t, q);
+  return 0.0f;
+}
+template <class CN>
+__device__ __forceinline__ float out_kept(const CN& cn, int t, float q,
+                                          float) {
+  return cn.out(t, q);
+}
+__device__ __forceinline__ float add_kept(SumProduct& cn, int t, float q) {
+  return cn.add_phi(t, q);
+}
+__device__ __forceinline__ float out_kept(const SumProduct& cn, int, float q,
+                                          float ph) {
+  return cn.out_phi(q, ph);
+}
+
 // Quantization policies, applied by the kernels at golden's four points:
 // quantize() on the channel LLRs and on each CN output, sat() on each
 // VN->CN message fed to the CN, sat_post() on the posterior.  NoQuant is
@@ -258,14 +294,20 @@ struct NoQuant {
 
 // Fixed-point grid k * step, |k| <= kmax = 2^(bits-1)-1 (golden's
 // quantize / saturate): k = min(floor(|x| / step + 0.5), kmax), then
-// (sign(x) * k) * step, and +0.0 where k == 0.  step is a power of two,
-// so the true division is exact.  The limits are computed on the host in
-// fp32 as golden computes them.
+// (sign(x) * k) * step, and +0.0 where k == 0.  The limits are computed
+// on the host in fp32 as golden computes them.
+//
+// |x| / step is computed as |x| * inv_step, with no division: step is a
+// power of two 2^k and inv_step its exact fp32 reciprocal 2^-k
+// (make_quant refuses any other), so the quotient and the product are
+// both the correctly rounded (round-to-nearest-even) fp32 value of the
+// same real number |x| * 2^-k -- including where that number is
+// subnormal or overflows -- hence the same float for every input.
 struct Quant {
-  float step, kmax, lim_msg, lim_post;
+  float step, inv_step, kmax, lim_msg, lim_post;
 
   __device__ __forceinline__ float quantize(float x) const {
-    const float k = fminf(floorf(fabsf(x) / step + 0.5f), kmax);
+    const float k = fminf(floorf(fabsf(x) * inv_step + 0.5f), kmax);
     return k == 0.0f ? 0.0f : ((x < 0.0f ? -1.0f : 1.0f) * k) * step;
   }
   __device__ __forceinline__ float sat(float x) const {
@@ -275,6 +317,18 @@ struct Quant {
     return fminf(fmaxf(x, -lim_post), lim_post);
   }
 };
+
+// The Quant of the grid `step` (host side, fp32): false, and *q untouched,
+// unless step is a power of two whose fp32 reciprocal is exact.
+inline bool make_quant(float step, float kmax, float lim_msg, float lim_post,
+                       Quant* q) {
+  int exp;
+  if (!(step > 0.0f) || frexpf(step, &exp) != 0.5f) return false;
+  const float inv_step = 1.0f / step;
+  if (step * inv_step != 1.0f || frexpf(inv_step, &exp) != 0.5f) return false;
+  *q = Quant{step, inv_step, kmax, lim_msg, lim_post};
+  return true;
+}
 
 // Message-storage policies for R: F32Msg keeps float32; Bf16Msg stores
 // bf16 rounded to nearest even (as PyTorch's .to(torch.bfloat16) and XLA's

@@ -14,70 +14,97 @@
 // (rescaled=True, 443-450, 526-533, 574-580) and shift normalization
 // (_normalize_offsets 108-208, applied at 426-438, 524-534, 687-707).  It
 // ports WHAT that kernel computes, not its TPU layout (codewords on lanes,
-// Z on sublanes, static rolls):
+// Z on sublanes, static rolls).
 //
-//   * One thread block per codeword; grid = batch.  Nothing is padded, so
-//     no padding can leak into real codewords.
-//   * The whole decoder state lives in dynamic shared memory for all
-//     iterations: L[n], P[n] float32 and R[E*Z] (float32 or bf16),
-//     8n + 4EZ or 8n + 2EZ bytes (21,248 or 14,720 B for the judged
+// What it computes, per codeword (one thread block; grid = batch; nothing
+// is padded, so no padding can leak into real codewords):
+//   * L[n], P[n] float32 and R[E*Z] (float32 or bf16) live in dynamic
+//     shared memory for all iterations, with a per-variable table VN[n]:
+//     12n + 4EZ or 12n + 2EZ bytes (25,344 or 18,816 B for the judged
 //     (1024, 512) code).  Messages never go to device memory mid-decode.
-//   * CN pass: one thread per check (i, r).  Pass 1 over the row's edges
-//     in edge order gathers q_e = P[col_e*Z + (r+s_e) mod Z] - R[e*Z+r]
-//     and feeds the CN update (bp_common.cuh: MinSum, MinSumUnit,
-//     SumProduct or SumProductFast); pass 2 recomputes q_e (same operands,
-//     same rounding) and writes R_e = cn.out(e, q_e).  Two passes keep no
-//     per-row array.
-//   * VN pass: one thread per variable (j, v): p = L + sum of
-//     R[e*Z + (v-s_e) mod Z] in ascending block-row order.  No atomics:
-//     they would change the summation order.
-//   * Quantization is a policy beside the CN update (bp_common.cuh:
-//     NoQuant, Quant), applied at golden's four points: the LLRs as they
-//     load (L and P start on the grid), q saturated before cn.add and
-//     cn.out (both passes recompute the same value), cn.out quantized
-//     before R is stored, the posterior saturated after the VN sum.
-//   * Message storage is a policy too (F32Msg, Bf16Msg): R is rounded to
-//     bf16 as it is stored and widened as it is read, so the CN's q and
-//     the VN sums both see the rounded message, as in the Pallas kernel.
+//   * R is stored in variable-aligned coordinates, its edges grouped by
+//     block-column (decode/flood_plan.py): the message on edge e between
+//     check r and variable z = (r + s_e) mod Z sits at R[rslot_e*Z + z].
+//   * CN pass, check (i, r): q_t = sat(P[col_t*Z + z_t] - R[rslot_t*Z +
+//     z_t]) over the row's slots in edge order feeds the CN update
+//     (bp_common.cuh: MinSum, MinSumUnit, SumProduct, SumProductFast),
+//     then R gets quantize(cn.out(t, q_t)) for the same q_t.
+//   * VN pass, variable (j, z): p = L + the column's messages in
+//     ascending block-row order, R[base + t*Z], then sat_post.  No
+//     atomics: they would change the summation order.
+//   * Quantization (NoQuant, Quant) at golden's four points: the LLRs as
+//     they load, q before the CN, the CN output before R, the posterior.
+//     Message storage (F32Msg, Bf16Msg): R is rounded as it is stored and
+//     widened as it is read, so the CN's q and the VN sums both see the
+//     rounded message, as in the Pallas kernel.
 //   * Rescaled (kRescaled, with MinSumUnit): L holds the scaled channel
 //     term, LLR * (1/alpha) at entry; each VN pass reads it for its sum
 //     and stores it times 1/alpha for the next iteration.  The product
 //     only feeds a store.
-//   * Shift normalization is relabeling: the host passes the effective
-//     shifts (s + d_i - c_j) mod Z in edge_shift and the column offsets
-//     c_j in col_off (null in plain coordinates).  The coalesced LLR load
-//     stores into the state at the rotated index, the coalesced bit store
-//     reads from it (state_index): no extra pass or buffer, and plain
-//     coordinates read no offset at all.  A zero shift takes the
-//     same wrap arithmetic as any other: a branch that skipped it made
-//     every kernel 4-7% slower on the card and the normalized kernels no
-//     faster (PERF.md).
+//   * Shift normalization is relabeling: the host builds the tables from
+//     the effective shifts and passes the column offsets c_j in col_off
+//     (null in plain coordinates); the coalesced LLR load stores into the
+//     state at the rotated index and the bit store reads from it.
 //   * Early termination with golden semantics (golden/decoder.py:21-25):
 //     the CN pass of iteration `it` also counts violated checks of the
 //     pre-pass posterior P_{it-1} (it=1 checks the channel decision);
 //     __syncthreads_or turns the counts into one block-wide verdict and
 //     the block exits at the first zero with iters_used = it-1.  After the
 //     last iteration one standalone syndrome gives ok; iters_used = iters.
-//     A block's bits come from its final P only, so no latched bits need
-//     merging before the un-rotation.
+//     A block's bits come from its final P only.
 //   * Built with -fmad=false: no product may be fused into an add
 //     unrounded.  Sum-product calls tanhf / logf (no fast-math), which
 //     round differently from PyTorch's CPU functions, so it agrees with
 //     the plain version frame by frame, not bit for bit; every other mode
 //     is bit-exact.
 //
-// What bounds it on the card: shared-memory gather bandwidth and
-// instruction issue (min-sum; sumproduct-fast adds a three-smallest scan
-// and three PWL soft-mins per check, quantization a floor, a division and
-// clips per edge, bf16 a conversion per message load and store), plus two
-// transcendentals per edge and pass (sum-product: tanhf and logf in each
-// of phi(|q|) and phi(tot - phi_e)).  Per codeword and iteration it makes
-// about 5*E*Z shared-memory reads plus the index arithmetic of each
-// circulant gather.  This first design keeps every access in shared
-// memory with consecutive threads on consecutive Z offsets (conflict-free
-// but for the wrap), and does nothing else about it: several codewords
-// per block, a warp per row, single-pass scans in registers and packed
-// messages are later work.
+// What bounds it on the card.  The first design of this body was bound by
+// instruction throughput: its time tracked the instruction count in
+// every measurement (fixed-point's extra operations, two operations more
+// per gather), while it moved about a fifth of the shared-memory
+// bandwidth.  The work per edge that the algorithm needs is two gathers,
+// a subtraction, a scan step, the output and its store, and one add in
+// the VN sum; that design spent about three times that, on work that is
+// the same every iteration or done twice.  What this design does about
+// each part:
+//   1. R in variable-aligned coordinates, grouped by column: the CN pass
+//      reads P and R at one rotated offset z_t, the VN pass reads R at
+//      base + t*Z with no wrap arithmetic at all.
+//   2. One CN pass: the row's degree has a compile-time bound kMaxDeg
+//      (8, 16 or 32, picked by the host from the largest row), the slot
+//      loops are unrolled with `t < deg` predicates, so q_t (and for
+//      exact sum-product phi(|q_t|), through add_kept / out_kept: two phi
+//      per edge, not three) stays in registers between cn.add and
+//      cn.out.  No second gather of P or load of R, no second
+//      subtraction, saturation or phi.
+//   3. Nothing that is the same in every iteration is recomputed in it:
+//      each thread keeps one check for the whole decode, and its row's
+//      P and R indices sit in registers from the prologue on (16 bits each
+//      in one register above 8 slots); each variable's R base and column
+//      degree sit in the shared VN table.  The iteration loop has no
+//      integer division and loads no metadata from device memory.  The
+//      block has one thread per check, in whole warps (512 for the
+//      judged code).
+//   4. Per-row work once per row: MinSum scales its two minima in finish,
+//      and out selects between them (bp_common.cuh).
+//   5. Fixed-point without a division: Quant multiplies by the exact
+//      reciprocal of its power-of-two step (bp_common.cuh says why that
+//      is the same float).
+// With these the body takes about half the first design's time, and
+// what bounds it is no longer the instruction count alone but latency
+// against occupancy: at 58-64 registers a thread, two blocks of 16 warps
+// fit an SM, and a build held to three blocks (at most 42 registers, so
+// with spills) ran 2-4% faster on min-sum (PERF.md); this build keeps
+// the judged code's instantiations free of spills.
+//
+// A code whose largest row exceeds 32, or that has more checks than a
+// bucket's block may hold (m > 1024, or m > 512 for 32 slots), or whose
+// indices do not fit 16 bits above 8 slots, runs kMaxDeg = 0: the same
+// state, layout and VN pass, a block of 256 threads each taking checks
+// c, c + 256, ... ((i, r) stepped without a division) in two passes over
+// its row, the per-edge tables in shared memory.  Several codewords per
+// block (to fill the warps of small codes) was not taken: one codeword
+// per block already has 16 warps on the judged code.
 
 #include "bp_common.cuh"
 
@@ -85,27 +112,183 @@ namespace {
 
 using namespace ldpc;
 
-constexpr int kThreads = 256;
+// The index tables of decode/flood_plan.py in device memory.  A block
+// reads them once, before its first iteration.
+struct Tables {
+  const int32_t *vn_info, *cn_p, *cn_r, *cn_deg, *row_ptr, *e_p, *e_r,
+      *e_shift;
+};
 
-template <class CN, class QP, class MP, bool kRescaled>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kGenericThreads = 256;
+constexpr int kVnBaseBits = 17;  // vn_info = (col_deg << 17) | R base
+constexpr uint32_t kVnBaseMask = (1u << kVnBaseBits) - 1;
+constexpr int kPackLimit = 1 << 16;
+
+// The most threads one block of kMaxDeg may have (flood_plan.MAX_THREADS):
+// its __launch_bounds__, so 64 registers a thread at 1024, 128 at 512.
+constexpr int max_threads(int max_deg) {
+  return max_deg == 0 ? kGenericThreads : max_deg <= 16 ? 1024 : 512;
+}
+
+// This thread's check for the whole decode: the P and R indices of each
+// slot of its row, in registers.  Above 8 slots both share one register,
+// 16 bits each (the host checks n and E*Z against kPackLimit).
+template <int kMaxDeg>
+struct Slots {
+  static constexpr bool kPacked = kMaxDeg > 8;
+  int deg;  // 0 for a thread past the last check
+  uint32_t a[kMaxDeg];
+  uint32_t b[kPacked ? 1 : kMaxDeg];
+
+  __device__ __forceinline__ void load(const Tables& tab, int c, int m) {
+    deg = c < m ? tab.cn_deg[c] : 0;
+#pragma unroll
+    for (int t = 0; t < kMaxDeg; ++t) {
+      const uint32_t p = t < deg ? (uint32_t)tab.cn_p[t * m + c] : 0u;
+      const uint32_t r = t < deg ? (uint32_t)tab.cn_r[t * m + c] : 0u;
+      if constexpr (kPacked) {
+        a[t] = p | r << 16;
+      } else {
+        a[t] = p;
+        b[t] = r;
+      }
+    }
+  }
+  __device__ __forceinline__ int p(int t) const {
+    if constexpr (kPacked) return (int)(a[t] & 0xffffu);
+    return (int)a[t];
+  }
+  __device__ __forceinline__ int r(int t) const {
+    if constexpr (kPacked) return (int)(a[t] >> 16);
+    return (int)b[t];
+  }
+};
+
+// One CN pass over this thread's check: gathers q_t once, keeps it in
+// registers from cn.add to cn.out.  Returns the parity of the pre-pass
+// hard decisions (1: the check is violated).
+template <class CN, class QP, class MP, int kMaxDeg>
+__device__ __forceinline__ int cn_check(const Slots<kMaxDeg>& s,
+                                        const float* P, typename MP::T* R,
+                                        const CN& proto, const QP& quant) {
+  float q[kMaxDeg];
+  float kept[kMaxDeg];
+  CN cn = proto;
+  cn.begin();
+  int parity = 0;
+#pragma unroll
+  for (int t = 0; t < kMaxDeg; ++t) {
+    if (t < s.deg) {
+      const float p = P[s.p(t)];
+      q[t] = quant.sat(p - MP::load(R[s.r(t)]));
+      parity ^= p < 0.0f;
+      kept[t] = add_kept(cn, t, q[t]);
+    }
+  }
+  cn.finish(s.deg);
+#pragma unroll
+  for (int t = 0; t < kMaxDeg; ++t) {
+    if (t < s.deg) {
+      R[s.r(t)] = MP::store(quant.quantize(out_kept(cn, t, q[t], kept[t])));
+    }
+  }
+  return parity;
+}
+
+template <int kMaxDeg>
+__device__ __forceinline__ int check_parity(const Slots<kMaxDeg>& s,
+                                            const float* P) {
+  int parity = 0;
+#pragma unroll
+  for (int t = 0; t < kMaxDeg; ++t) {
+    if (t < s.deg) parity ^= P[s.p(t)] < 0.0f;
+  }
+  return parity;
+}
+
+// kMaxDeg = 0: this thread's checks c = threadIdx.x + k * blockDim.x with
+// (i, r) stepped by (di, dr) = divmod(blockDim.x, Z), rows of any degree.
+struct GenericRows {
+  const int32_t *row_ptr, *e_p, *e_r, *e_shift;  // shared memory
+  int i0, r0, di, dr;
+
+  // CN pass: two passes over each row, the second recomputing q from the
+  // same operands.  Returns the number of violated pre-pass checks.
+  template <class CN, class QP, class MP>
+  __device__ __forceinline__ int cn_pass(const float* P, typename MP::T* R,
+                                         const CN& proto, const QP& quant,
+                                         int Z, int m) const {
+    int viol = 0;
+    int i = i0;
+    int r = r0;
+    for (int c = threadIdx.x; c < m; c += blockDim.x) {
+      const int e0 = row_ptr[i];
+      const int e1 = row_ptr[i + 1];
+      CN cn = proto;
+      cn.begin();
+      int parity = 0;
+      for (int e = e0; e < e1; ++e) {
+        const int z = wrap_add(r, e_shift[e], Z);
+        const float p = P[e_p[e] + z];
+        cn.add(e - e0, quant.sat(p - MP::load(R[e_r[e] + z])));
+        parity ^= p < 0.0f;
+      }
+      cn.finish(e1 - e0);
+      for (int e = e0; e < e1; ++e) {
+        const int z = wrap_add(r, e_shift[e], Z);
+        const int k = e_r[e] + z;
+        const float q = quant.sat(P[e_p[e] + z] - MP::load(R[k]));
+        R[k] = MP::store(quant.quantize(cn.out(e - e0, q)));
+      }
+      viol += parity;
+      step(i, r, Z);
+    }
+    return viol;
+  }
+
+  __device__ __forceinline__ int violations(const float* P, int Z,
+                                            int m) const {
+    int viol = 0;
+    int i = i0;
+    int r = r0;
+    for (int c = threadIdx.x; c < m; c += blockDim.x) {
+      int parity = 0;
+      for (int e = row_ptr[i]; e < row_ptr[i + 1]; ++e) {
+        parity ^= P[e_p[e] + wrap_add(r, e_shift[e], Z)] < 0.0f;
+      }
+      viol += parity;
+      step(i, r, Z);
+    }
+    return viol;
+  }
+
+  __device__ __forceinline__ void step(int& i, int& r, int Z) const {
+    i += di;
+    r += dr;
+    if (r >= Z) {
+      r -= Z;
+      ++i;
+    }
+  }
+};
+
+template <class CN, class QP, class MP, bool kRescaled, int kMaxDeg>
+__global__ void __launch_bounds__(max_threads(kMaxDeg))
 bp_flood_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
                 uint8_t* __restrict__ ok_out, int32_t* __restrict__ iu_out,
-                const int32_t* __restrict__ edge_col,
-                const int32_t* __restrict__ edge_shift,
-                const int32_t* __restrict__ row_ptr,
-                const int32_t* __restrict__ col_slots,
-                const int32_t* __restrict__ col_deg,
-                const int32_t* __restrict__ col_off, int Z, int mb, int nb,
-                int E, int max_col_deg, int iters, CN proto, QP quant,
+                Tables tab, const int32_t* __restrict__ col_off, int Z,
+                int mb, int nb, int E, int iters, CN proto, QP quant,
                 float inv_alpha, int early_stop) {
   using Msg = typename MP::T;
+  constexpr bool kGeneric = kMaxDeg == 0;
   extern __shared__ float smem[];
   const int n = nb * Z;
   const int m = mb * Z;
   float* L = smem;
   float* P = L + n;
-  Msg* R = reinterpret_cast<Msg*>(P + n);  // E * Z, check coordinates
+  uint32_t* VN = reinterpret_cast<uint32_t*>(P + n);
+  int32_t* rows = reinterpret_cast<int32_t*>(VN + n);  // kGeneric only
+  Msg* R = reinterpret_cast<Msg*>(kGeneric ? rows + mb + 1 + 3 * E : rows);
   const int64_t b = blockIdx.x;
   const float* llr_b = llr + b * n;
 
@@ -114,34 +297,38 @@ bp_flood_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
     const int u = state_index(v, col_off, Z);
     L[u] = kRescaled ? x * inv_alpha : x;
     P[u] = x;
+    VN[v] = (uint32_t)tab.vn_info[v];
   }
   for (int t = threadIdx.x; t < E * Z; t += blockDim.x) R[t] = MP::store(0.0f);
+  GenericRows g{rows, rows + mb + 1, rows + mb + 1 + E, rows + mb + 1 + 2 * E,
+                0, 0, 0, 0};
+  Slots<kGeneric ? 1 : kMaxDeg> slots;
+  if constexpr (kGeneric) {
+    for (int t = threadIdx.x; t <= mb; t += blockDim.x) {
+      rows[t] = tab.row_ptr[t];
+    }
+    for (int e = threadIdx.x; e < E; e += blockDim.x) {
+      rows[mb + 1 + e] = tab.e_p[e];
+      rows[mb + 1 + E + e] = tab.e_r[e];
+      rows[mb + 1 + 2 * E + e] = tab.e_shift[e];
+    }
+    g.i0 = threadIdx.x / Z;
+    g.r0 = threadIdx.x - g.i0 * Z;
+    g.di = blockDim.x / Z;
+    g.dr = blockDim.x - g.di * Z;
+  } else {
+    slots.load(tab, threadIdx.x, m);
+  }
   __syncthreads();
 
   int converged_at = -1;  // block-uniform
   for (int it = 1; it <= iters; ++it) {
     // ---- CN pass (+ syndrome of the pre-pass posterior) ----
-    int viol = 0;
-    for (int c = threadIdx.x; c < m; c += blockDim.x) {
-      const int i = c / Z;
-      const int r = c - i * Z;
-      const int e0 = row_ptr[i];
-      const int e1 = row_ptr[i + 1];
-      CN cn = proto;
-      cn.begin();
-      int parity = 0;
-      for (int e = e0; e < e1; ++e) {
-        const float p = P[edge_col[e] * Z + wrap_add(r, edge_shift[e], Z)];
-        cn.add(e - e0, quant.sat(p - MP::load(R[e * Z + r])));
-        parity ^= p < 0.0f;
-      }
-      cn.finish(e1 - e0);
-      for (int e = e0; e < e1; ++e) {
-        const float p = P[edge_col[e] * Z + wrap_add(r, edge_shift[e], Z)];
-        R[e * Z + r] = MP::store(quant.quantize(
-            cn.out(e - e0, quant.sat(p - MP::load(R[e * Z + r])))));
-      }
-      viol += parity;
+    int viol;
+    if constexpr (kGeneric) {
+      viol = g.cn_pass<CN, QP, MP>(P, R, proto, quant, Z, m);
+    } else {
+      viol = slots.deg ? cn_check<CN, QP, MP>(slots, P, R, proto, quant) : 0;
     }
     if (early_stop) {
       if (!__syncthreads_or(viol)) {
@@ -154,17 +341,14 @@ bp_flood_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
 
     // ---- VN pass: ascending block-row order, no atomics ----
     for (int v = threadIdx.x; v < n; v += blockDim.x) {
-      const int j = v / Z;
-      const int z = v - j * Z;
+      const uint32_t info = VN[v];
+      const Msg* rv = R + (info & kVnBaseMask);
+      const int dc = (int)(info >> kVnBaseBits);
       float p = L[v];
       // rescaled: the next iteration's channel term; the product feeds
       // only this store
       if (kRescaled) L[v] = p * inv_alpha;
-      const int32_t* slots = col_slots + j * max_col_deg;
-      for (int t = 0; t < col_deg[j]; ++t) {
-        const int e = slots[t];
-        p = p + MP::load(R[e * Z + wrap_sub(z, edge_shift[e], Z)]);
-      }
+      for (int t = 0; t < dc; ++t) p = p + MP::load(rv[t * Z]);
       P[v] = quant.sat_post(p);
     }
     __syncthreads();
@@ -177,8 +361,13 @@ bp_flood_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
     iters_used = converged_at;
   } else {
     // final posterior: one standalone syndrome (ET on or off alike)
-    ok = !__syncthreads_or(
-        count_violations(P, edge_col, edge_shift, row_ptr, Z, m));
+    int viol;
+    if constexpr (kGeneric) {
+      viol = g.violations(P, Z, m);
+    } else {
+      viol = check_parity(slots, P);
+    }
+    ok = !__syncthreads_or(viol);
     iters_used = iters;
   }
   uint8_t* bits_b = bits + b * n;
@@ -196,29 +385,50 @@ struct Args {
   uint8_t* bits;
   uint8_t* ok;
   int32_t* iters_used;
-  const int32_t *edge_col, *edge_shift, *row_ptr, *col_slots, *col_deg,
-      *col_off;
-  int batch, Z, mb, nb, E, max_col_deg, iters;
+  Tables tab;
+  const int32_t* col_off;
+  int batch, Z, mb, nb, E, bucket, threads, iters;
   float alpha, beta, inv_alpha;
   int early_stop;
   size_t smem;
   cudaStream_t stream;
 };
 
-template <class CN, class MP, bool kRescaled = false, class QP = NoQuant>
-cudaError_t launch(const Args& a, QP quant = QP{}) {
-  auto kernel = bp_flood_kernel<CN, QP, MP, kRescaled>;
+template <class CN, class QP, class MP, bool kRescaled, int kMaxDeg>
+cudaError_t launch_bucket(const Args& a, const QP& quant) {
+  const int m = a.mb * a.Z;
+  const int n = a.nb * a.Z;
+  if (a.threads <= 0 || a.threads % 32 || a.threads > max_threads(kMaxDeg) ||
+      (kMaxDeg > 0 && a.threads < m) ||
+      (kMaxDeg > 8 && (n > kPackLimit || a.E * a.Z > kPackLimit))) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = bp_flood_kernel<CN, QP, MP, kRescaled, kMaxDeg>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
   if (err != cudaSuccess) return err;
   CN proto;
   proto.alpha = a.alpha;
   proto.beta = a.beta;
-  kernel<<<a.batch, kThreads, a.smem, a.stream>>>(
-      a.llr, a.bits, a.ok, a.iters_used, a.edge_col, a.edge_shift,
-      a.row_ptr, a.col_slots, a.col_deg, a.col_off, a.Z, a.mb, a.nb, a.E,
-      a.max_col_deg, a.iters, proto, quant, a.inv_alpha, a.early_stop);
+  kernel<<<a.batch, a.threads, a.smem, a.stream>>>(
+      a.llr, a.bits, a.ok, a.iters_used, a.tab, a.col_off, a.Z, a.mb, a.nb,
+      a.E, a.iters, proto, quant, a.inv_alpha, a.early_stop);
   return cudaGetLastError();
+}
+
+template <class CN, class MP, bool kRescaled = false, class QP = NoQuant>
+cudaError_t launch(const Args& a, QP quant = QP{}) {
+  switch (a.bucket) {
+    case 8:
+      return launch_bucket<CN, QP, MP, kRescaled, 8>(a, quant);
+    case 16:
+      return launch_bucket<CN, QP, MP, kRescaled, 16>(a, quant);
+    case 32:
+      return launch_bucket<CN, QP, MP, kRescaled, 32>(a, quant);
+    case 0:
+      return launch_bucket<CN, QP, MP, kRescaled, 0>(a, quant);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <class MP>
@@ -233,47 +443,59 @@ cudaError_t launch_algo(int algo, const Args& a) {
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs: L and P in float32,
-// R in float32 or (msg_bf16 != 0) bf16.
-size_t ldpc_bp_flood_smem_bytes(int Z, int nb, int E, int msg_bf16) {
-  return 2 * (size_t)nb * Z * sizeof(float) +
+// Bytes of dynamic shared memory one block needs: L, P and the VN table
+// (4 B each per variable), the per-edge tables of bucket 0 (row_ptr and
+// three per edge), and R in float32 or (msg_bf16 != 0) bf16.
+size_t ldpc_bp_flood_smem_bytes(int Z, int mb, int nb, int E, int bucket,
+                                int msg_bf16) {
+  return 3 * (size_t)nb * Z * sizeof(float) +
+         (bucket == 0 ? (size_t)(mb + 1 + 3 * E) * sizeof(int32_t) : 0) +
          (size_t)E * Z * (msg_bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
 }
 
-// Launches one block per codeword on `stream` (a cudaStream_t) of the
-// current CUDA device; the caller makes the device of `stream` current.
-// algo: 0 min-sum, 1 sum-product, 2 sumproduct-fast (ldpc::Algo).
-// edge_shift: the effective shifts and col_off the column offsets of shift
-// normalization (the layout's shifts and NULL without it).
-// msg_bf16 != 0 stores R in bf16.  rescaled != 0 selects rescaled min-sum
-// (alpha is then ignored, inv_alpha = fp32(1)/fp32(alpha) scales L).
-// quantized != 0 selects fixed-point min-sum on the grid `step` (a power
-// of two) with largest index `kmax` and saturation limits `lim_msg` /
-// `lim_post`.  Quantized or rescaled with another algo, or with bf16, and
-// both together, return cudaErrorInvalidValue.
-// Returns the cudaError_t of the attribute call or of the launch
-// (cudaGetLastError); 0 means launched.  Does not synchronise.
+// Launches one block of `threads` threads per codeword on `stream` (a
+// cudaStream_t) of the current CUDA device; the caller makes the device of
+// `stream` current.  algo: 0 min-sum, 1 sum-product, 2 sumproduct-fast
+// (ldpc::Algo).  The tables, `bucket` (kMaxDeg: 8, 16, 32, or 0 for the
+// two-pass kernel) and `threads` come from decode/flood_plan.py, built
+// from the shifts the decoder runs with; col_off: the column offsets of
+// shift normalization (NULL without it).  msg_bf16 != 0 stores R in
+// bf16.  rescaled != 0 selects rescaled min-sum (alpha is then ignored,
+// inv_alpha = fp32(1)/fp32(alpha) scales L).  quantized != 0 selects
+// fixed-point min-sum on the grid `step` (a power of two) with largest
+// index `kmax` and saturation limits `lim_msg` / `lim_post`.  Quantized or
+// rescaled with another algo, or with bf16, both together, a step that is
+// not a power of two, or a bucket / thread count the code does not fit
+// return cudaErrorInvalidValue.  Returns the cudaError_t of the attribute
+// call or of the launch (cudaGetLastError); 0 means launched.  Does not
+// synchronise.
 int ldpc_bp_flood(int algo, const float* llr, uint8_t* bits, uint8_t* ok,
-                  int32_t* iters_used, const int32_t* edge_col,
-                  const int32_t* edge_shift, const int32_t* row_ptr,
-                  const int32_t* col_slots, const int32_t* col_deg,
-                  const int32_t* col_off, int batch, int Z, int mb, int nb,
-                  int E, int max_col_deg, int iters, float alpha, float beta,
-                  int early_stop, int msg_bf16, int rescaled,
-                  float inv_alpha, int quantized, float step, float kmax,
-                  float lim_msg, float lim_post, void* stream) {
-  const Args a{llr, bits, ok, iters_used, edge_col, edge_shift, row_ptr,
-               col_slots, col_deg, col_off, batch, Z, mb, nb, E,
-               max_col_deg, iters, alpha, beta, inv_alpha, early_stop,
-               ldpc_bp_flood_smem_bytes(Z, nb, E, msg_bf16),
+                  int32_t* iters_used, const int32_t* vn_info,
+                  const int32_t* cn_p, const int32_t* cn_r,
+                  const int32_t* cn_deg, const int32_t* row_ptr,
+                  const int32_t* e_p, const int32_t* e_r,
+                  const int32_t* e_shift, const int32_t* col_off, int batch,
+                  int Z, int mb, int nb, int E, int bucket, int threads,
+                  int iters, float alpha, float beta, int early_stop,
+                  int msg_bf16, int rescaled, float inv_alpha, int quantized,
+                  float step, float kmax, float lim_msg, float lim_post,
+                  void* stream) {
+  const Args a{llr, bits, ok, iters_used,
+               Tables{vn_info, cn_p, cn_r, cn_deg, row_ptr, e_p, e_r, e_shift},
+               col_off, batch, Z, mb, nb, E, bucket, threads, iters, alpha,
+               beta, inv_alpha, early_stop,
+               ldpc_bp_flood_smem_bytes(Z, mb, nb, E, bucket, msg_bf16),
                (cudaStream_t)stream};
   if (quantized || rescaled) {
     if (algo != kMinSum || msg_bf16 || (quantized && rescaled)) {
       return (int)cudaErrorInvalidValue;
     }
     if (rescaled) return (int)launch<MinSumUnit, F32Msg, true>(a);
-    return (int)launch<MinSum, F32Msg, false>(
-        a, Quant{step, kmax, lim_msg, lim_post});
+    Quant quant;
+    if (!make_quant(step, kmax, lim_msg, lim_post, &quant)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return (int)launch<MinSum, F32Msg, false>(a, quant);
   }
   return (int)(msg_bf16 ? launch_algo<Bf16Msg>(algo, a)
                         : launch_algo<F32Msg>(algo, a));

@@ -215,8 +215,9 @@ int ldpc_bp_layered_threads(int Z) {
 // normalization (the layout's shifts and NULL without it).
 // msg_bf16 != 0 stores R in bf16.  quantized != 0 selects fixed-point
 // min-sum on the grid `step` (a power of two) with largest index `kmax`
-// and saturation limits `lim_msg` / `lim_post`; with another algo or with
-// bf16 it returns cudaErrorInvalidValue.
+// and saturation limits `lim_msg` / `lim_post`; with another algo, with
+// bf16 or with a step that is not a power of two it returns
+// cudaErrorInvalidValue.
 // Returns the cudaError_t of the attribute call or of the launch
 // (cudaGetLastError); 0 means launched.  Does not synchronise.
 int ldpc_bp_layered(int algo, const float* llr, uint8_t* bits, uint8_t* ok,
@@ -232,8 +233,12 @@ int ldpc_bp_layered(int algo, const float* llr, uint8_t* bits, uint8_t* ok,
                ldpc_bp_layered_smem_bytes(Z, nb, E, msg_bf16),
                (cudaStream_t)stream};
   if (quantized) {
-    if (algo != kMinSum || msg_bf16) return (int)cudaErrorInvalidValue;
-    return (int)launch<MinSum, F32Msg>(a, Quant{step, kmax, lim_msg, lim_post});
+    Quant quant;
+    if (algo != kMinSum || msg_bf16 ||
+        !make_quant(step, kmax, lim_msg, lim_post, &quant)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return (int)launch<MinSum, F32Msg>(a, quant);
   }
   return (int)(msg_bf16 ? launch_algo<Bf16Msg>(algo, a)
                         : launch_algo<F32Msg>(algo, a));

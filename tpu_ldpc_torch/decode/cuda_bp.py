@@ -34,6 +34,7 @@ import torch
 
 from tpu_ldpc_torch.codes.code import LdpcCode
 from tpu_ldpc_torch.codes_device import to_device
+from tpu_ldpc_torch.decode.flood_plan import flood_plan
 from tpu_ldpc_torch.decode.normalize import coordinates
 from tpu_ldpc_torch.decode.reference import (
     build_decoder, is_bf16, quant_params)
@@ -116,6 +117,7 @@ def build_cuda_decoder(
     bf16 = is_bf16(msg_dtype)
     normalized = normalize and not compressed
     shifts, col_off = coordinates(code, normalized)
+    flooding = schedule == "flooding" and not compressed
     name = kernel_name(algo, schedule, quantized=quant_bits is not None,
                        bf16=bf16, rescaled=rescaled, compressed=compressed)
     counters = (name, f"{name}_normalized") if normalized else (name,)
@@ -124,7 +126,9 @@ def build_cuda_decoder(
     if quant_bits is not None:
         qargs = (1, *quant_params(quant_bits, quant_step, quant_post_bits))
     inv_alpha = float(np.float32(1.0) / np.float32(alpha))
-    tables = {}  # device -> (effective shifts, column offsets) as int32
+    # device -> (effective shifts, column offsets, the flooding plan's
+    # tables) as int32
+    tables = {}
 
     def launch(llr: torch.Tensor):
         from tpu_ldpc_torch._build import check, load_library
@@ -133,10 +137,12 @@ def build_cuda_decoder(
                            "bp_flood" if schedule == "flooding" else
                            "bp_layered")
         dc = to_device(code, llr.device)
+        plan = flood_plan(code, shifts) if flooding else None
         if compressed:
             smem = lib.ldpc_bp_compressed_smem_bytes(code.Z, code.mb, code.nb)
-        elif schedule == "flooding":
-            smem = lib.ldpc_bp_flood_smem_bytes(code.Z, code.nb, dc.E, bf16)
+        elif flooding:
+            smem = lib.ldpc_bp_flood_smem_bytes(code.Z, code.mb, code.nb,
+                                                dc.E, plan.bucket, bf16)
         else:
             smem = lib.ldpc_bp_layered_smem_bytes(code.Z, code.nb, dc.E, bf16)
         if smem > SMEM_LIMIT_BYTES:
@@ -144,10 +150,12 @@ def build_cuda_decoder(
                 f"{code.name}: {name} decoder state {smem} B exceeds the "
                 f"{SMEM_LIMIT_BYTES} B of shared memory one block may use")
         if llr.device not in tables:
-            tables[llr.device] = tuple(
-                torch.tensor(x, dtype=torch.int32, device=llr.device)
-                for x in (shifts, col_off))
-        eshift, coff = tables[llr.device]
+            tables[llr.device] = (
+                *(torch.tensor(x, dtype=torch.int32, device=llr.device)
+                  for x in (shifts, col_off)),
+                [torch.tensor(x, device=llr.device)
+                 for x in plan.tables().values()] if flooding else [])
+        eshift, coff, ftables = tables[llr.device]
         coff_ptr = coff.data_ptr() if any(col_off) else None  # NULL: plain
         batch = llr.shape[0]
         bits = torch.empty((batch, code.n), dtype=torch.uint8,
@@ -168,15 +176,14 @@ def build_cuda_decoder(
                     code.Z, code.mb, code.nb, code.layout.max_row_deg,
                     int(dc.col_slots.shape[1]), int(iters), float(alpha),
                     float(beta), int(bool(early_stop)), stream)
-            elif schedule == "flooding":
+            elif flooding:
                 err = lib.ldpc_bp_flood(
-                    _ALGO_IDS[algo], *outs, dc.edge_col.data_ptr(),
-                    eshift.data_ptr(), dc.row_ptr.data_ptr(),
-                    dc.col_slots.data_ptr(), dc.col_deg.data_ptr(),
-                    coff_ptr, batch, code.Z, code.mb, code.nb, dc.E,
-                    int(dc.col_slots.shape[1]), int(iters), float(alpha),
-                    float(beta), int(bool(early_stop)), int(bf16),
-                    int(bool(rescaled)), inv_alpha, *qargs, stream)
+                    _ALGO_IDS[algo], *outs,
+                    *(t.data_ptr() or None for t in ftables), coff_ptr,
+                    batch, code.Z, code.mb, code.nb, dc.E, plan.bucket,
+                    plan.threads, int(iters), float(alpha), float(beta),
+                    int(bool(early_stop)), int(bf16), int(bool(rescaled)),
+                    inv_alpha, *qargs, stream)
             else:
                 err = lib.ldpc_bp_layered(
                     _ALGO_IDS[algo], *outs, dc.edge_col.data_ptr(),
