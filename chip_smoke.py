@@ -17,8 +17,11 @@ and arithmetic modes (compressed row state, bf16 messages, rescaled
 min-sum, shift normalization) against the float32 decoder, two-phase
 under bf16 and decode() in the code's own coordinates; slice 5: the
 redesigned flooding body on one code per row-degree bucket (and its
-two-pass form), with ptxas's registers and spills of every instantiation
--- times kernels and plain versions with CUDA events, and prints:
+two-pass form), with ptxas's registers and spills of every instantiation;
+slice 6: the redesigned layered body and compressed-state kernel (K6) on
+one code per bucket and their two-pass and walking forms, K6 against the
+float32 K1, no spill in any judged-code instantiation -- times kernels
+and plain versions with CUDA events, and prints:
 
   - one line per phase;
   - the card's name and power limit (nvidia-smi);
@@ -195,19 +198,38 @@ def _ptxas_report(log):
 
 
 def _instantiation(mangled):
-    """A readable name for a bp_flood_kernel instantiation (its CN update,
-    quantization, message storage, rescaled flag and kMaxDeg); other
-    kernels keep their mangled name."""
+    """A readable name for a kernel instantiation: bp_flood_kernel's and
+    bp_layered_kernel's CN update, quantization, message storage, (flood)
+    rescaled flag and kMaxDeg; bp_compressed_kernel's form; other names
+    stay mangled."""
     import re
 
-    if "bp_flood_kernel" not in mangled:
+    m = re.search(r"bp_compressed_kernelILb([01])E", mangled)
+    if m:
+        return f"bp_compressed_kernel<kOneCheck={m.group(1)}>"
+    kind = next((k for k in ("bp_flood_kernel", "bp_layered_kernel")
+                 if k in mangled), None)
+    if kind is None:
         return mangled
     parts = [re.search(pat, mangled).group(1) for pat in (
         r"\d(MinSumUnit|MinSum|SumProductFast|SumProduct)E",
         r"\d(NoQuant|Quant)E", r"\d(F32Msg|Bf16Msg)E")]
-    rescaled, max_deg = re.search(r"Lb([01])ELi(\d+)E", mangled).groups()
-    return (f"bp_flood_kernel<{', '.join(parts)}, rescaled={rescaled}, "
-            f"kMaxDeg={max_deg}>")
+    if kind == "bp_flood_kernel":
+        rescaled, max_deg = re.search(r"Lb([01])ELi(\d+)E",
+                                      mangled).groups()
+        parts.append(f"rescaled={rescaled}")
+    else:
+        max_deg = re.search(r"Li(\d+)E", mangled).group(1)
+    return f"{kind}<{', '.join(parts)}, kMaxDeg={max_deg}>"
+
+
+# the judged code's instantiations, which must not spill: (pattern of
+# _instantiation's name, how many the sources have)
+JUDGED_INSTANTIATIONS = (
+    ("bp_flood_kernel<", "kMaxDeg=8>", 8),
+    ("bp_layered_kernel<", "kMaxDeg=8>", 7),
+    ("bp_compressed_kernel<kOneCheck=1>", "", 1),
+)
 
 
 def _noisy_llrs(code, batch, ebn0_db, seed):
@@ -335,7 +357,9 @@ def main() -> int:
     from tpu_ldpc_torch.decode import decode
     from tpu_ldpc_torch.decode.cuda_bp import (
         LAUNCHES, build_cuda_decoder, reset_launches)
-    from tpu_ldpc_torch.decode.flood_plan import flood_plan
+    from tpu_ldpc_torch.codes.base_graphs import make_sc_base_graph
+    from tpu_ldpc_torch.decode.flood_plan import compressed_plan, flood_plan
+    from tpu_ldpc_torch.decode.layered_plan import layered_plan
     from tpu_ldpc_torch.decode.knobs import resolve_twophase_knobs
     from tpu_ldpc_torch.decode.normalize import coordinates
     from tpu_ldpc_torch.decode.reference import build_decoder
@@ -382,18 +406,25 @@ def main() -> int:
     print(f"[2 build] {sorted(_build.sources())} in "
           f"{time.perf_counter() - t0:.2f} s (parallel nvcc "
           f"{_build.build_seconds:.2f} s)")
-    judged_flood = 0  # the judged code's flooding instantiations (8 slots)
+    judged_seen = [0] * len(JUDGED_INSTANTIATIONS)
     for src, log in sorted(_build.build_log.items()):
         for kname, regs, spills in _ptxas_report(log):
-            print(f"[2 build] {src} ptxas: {_instantiation(kname)}: {regs} "
+            inst = _instantiation(kname)
+            print(f"[2 build] {src} ptxas: {inst}: {regs} "
                   f"registers, {spills} bytes spill stores + loads")
-            if "kMaxDeg=8" in _instantiation(kname):
-                judged_flood += 1
-                if spills:
-                    raise AssertionError(f"{kname}: ptxas spills {spills} B")
-    if not judged_flood:
-        raise AssertionError("no ptxas report of bp_flood's 8-slot "
-                             "instantiations (delete build/ to rebuild)")
+            for k, (head, tail, _) in enumerate(JUDGED_INSTANTIATIONS):
+                if inst.startswith(head) and inst.endswith(tail):
+                    judged_seen[k] += 1
+                    if spills:
+                        raise AssertionError(f"{inst}: ptxas spills "
+                                             f"{spills} B")
+    for (head, tail, count), seen in zip(JUDGED_INSTANTIATIONS, judged_seen):
+        if seen != count:
+            raise AssertionError(
+                f"ptxas reports {seen} of the {count} judged-code "
+                f"instantiations {head}...{tail} (delete build/ to rebuild)")
+    print(f"[2 build] the judged code's {sum(judged_seen)} instantiations "
+          "(flooding, layered and compressed): no spill")
 
     # ---- 3. kernels vs plain versions on the card --------------------------
     t_phase = time.perf_counter()
@@ -540,50 +571,89 @@ def main() -> int:
                           f"{sum(s == 0 for s in coordinates(code, False)[0])}"
                           ")")
 
-    # the flooding body's instantiations by row-degree bucket (kMaxDeg,
-    # decode/flood_plan.py): the codes above cover 8 (judged), 16 (wifi
-    # 2/3) and 32 (wimax 5/6 Z=96); here the largest row of each bucket,
-    # wifi 3/4 Z=27 (16 of 16) and wimax 5/6 Z=48 (20 of 32), and the
-    # two-pass kernel (kMaxDeg = 0) on wimax 1/2 Z=96 (1152 checks, more
-    # than a one-pass block holds) and a row of degree 40.  Bit-exact
-    # modes, ET on and off, b=1024
+    # the flooding and layered bodies' instantiations by row-degree bucket
+    # (kMaxDeg, decode/flood_plan.py and decode/layered_plan.py): the
+    # codes above cover 8 (judged), 16 (wifi 2/3) and 32 (wimax 5/6 Z=96);
+    # here the largest row of each bucket, wifi 3/4 Z=27 (16 of 16) and
+    # wimax 5/6 Z=48 (20 of 32); the flooding two-pass kernel (kMaxDeg =
+    # 0) on wimax 1/2 Z=96 (1152 checks, more than a one-pass block holds)
+    # and the layered and flooding two-pass forms on a row of degree 40;
+    # an SC chain of 2176 checks (K6's walking form, flooding kMaxDeg 0)
+    # and one whose layered index table does not fit beside its state
+    # (the layered two-pass form at Z=96, 66 block-rows, whose flooding
+    # state no longer fits a block).  Bit-exact modes, ET on and off; K6
+    # also against the float32 K1 where K1's state fits
     wide_B = np.full((2, 40), -1)
     wide_B[0, :] = np.arange(40) % 5
     wide_B[1, :4] = [1, 2, 3, 4]
-    bucket_cases = [
-        (LdpcCode.from_family("wifi", "3/4", 27), 2.5),
-        (LdpcCode.from_family("wimax", "5/6", 48), 3.0),
-        (LdpcCode.from_family("wimax", "1/2", 96), 2.0),
-        (LdpcCode.from_base_graph(wide_B, 5, "deg40"), 4.0),
+    every = (("minsum_flood", {}), ("spfast_flood", {}),
+             ("minsum_quant_flood", Q6), ("minsum_flood_bf16", {}),
+             ("minsum_rescaled_flood", {}), ("minsum_layered", {}),
+             ("spfast_layered", {}), ("minsum_quant_layered", Q6),
+             ("minsum_layered_bf16", {}), ("spfast_layered_bf16", {}))
+    bucket_cases = [  # (code, Eb/N0, batch, kernels)
+        (LdpcCode.from_family("wifi", "3/4", 27), 2.5, 1024, every),
+        (LdpcCode.from_family("wimax", "5/6", 48), 3.0, 1024, every),
+        (LdpcCode.from_family("wimax", "1/2", 96), 2.0, 1024, every),
+        (LdpcCode.from_base_graph(wide_B, 5, "deg40"), 4.0, 1024, every),
+        (LdpcCode.from_base_graph(make_sc_base_graph(32, 64), 64,
+                                  "sc_l32_z64"), 2.0, 256,
+         (("minsum_layered", {}), ("minsum_quant_layered", Q6),
+          ("minsum_compressed_flood", {}))),
+        (LdpcCode.from_base_graph(make_sc_base_graph(64, 96), 96,
+                                  "sc_l64_z96"), 2.0, 128,
+         (("minsum_layered", {}), ("minsum_layered_bf16", {}),
+          ("minsum_compressed_flood", {}))),
     ]
-    for ci, (code, ebn0) in enumerate(bucket_cases):
-        plan = flood_plan(code, coordinates(code, False)[0])
-        if code.name == "deg40":  # H is rank-deficient: the zero codeword
+    for ci, (code, ebn0, batch, knames) in enumerate(bucket_cases):
+        if code.name in ("deg40",) or code.name.startswith("sc_"):
+            # rank-deficient H (or no encoder needed): the zero codeword
             rng = np.random.default_rng(SEED + 20)
             sigma2 = 1.0 / (2 * 0.5 * 10 ** (ebn0 / 10))
             base = (2.0 / sigma2 * (1.0 + np.sqrt(sigma2) * rng.normal(
-                size=(1024, code.n)))).astype(np.float32)
+                size=(batch, code.n)))).astype(np.float32)
         else:
-            base = _noisy_llrs(code, 1024, ebn0, SEED + 20 + ci)
-        for label, llr_np in ((f"{ebn0} dB b=1024", base),
-                              ("+-0.0/1e4 b=1024", _special_llrs(base, SEED))):
-            llr = torch.from_numpy(np.ascontiguousarray(llr_np)).to(dev)
-            for kname, q in (("minsum_flood", {}), ("spfast_flood", {}),
-                             ("minsum_quant_flood", Q6),
-                             ("minsum_flood_bf16", {}),
-                             ("minsum_rescaled_flood", {})):
+            base = _noisy_llrs(code, batch, ebn0, SEED + 20 + ci)
+        shifts = coordinates(code, False)[0]
+        for label, llr_np in ((f"{ebn0} dB", base),
+                              ("+-0.0/1e4", _special_llrs(base, SEED))):
+            llr_all = torch.from_numpy(np.ascontiguousarray(llr_np)).to(dev)
+            for kname, q in knames:
+                sched, iters = rows[kname][2], rows[kname][3]
+                # the layered kernels on the first 512 frames (phase 3's
+                # wall time is mostly the plain versions)
+                llr = llr_all[:512] if sched == "layered" else llr_all
+                if kname == "minsum_compressed_flood":
+                    cp = compressed_plan(code)
+                    form = (f"one check a thread={int(cp.one_check)} "
+                            f"threads={cp.threads}")
+                elif sched == "layered":
+                    lp, lp_et = (layered_plan(code, shifts,
+                                              2 if "bf16" in kname else 4, et)
+                                 for et in (False, True))
+                    form = (f"kMaxDeg={lp.bucket} group={lp.group} "
+                            f"(ET on {lp_et.group}) threads={lp.threads}")
+                else:
+                    fp = flood_plan(code, shifts)
+                    form = f"kMaxDeg={fp.bucket} threads={fp.threads}"
                 for et in (True, False):
-                    got = kernel(kname, code, 50, et, **q)(llr)
-                    want = plain(kname, code, 50, et, **q)(llr)
+                    got = kernel(kname, code, iters, et, **q)(llr)
+                    want = plain(kname, code, iters, et, **q)(llr)
                     err, _ = _diff(got, want)
+                    vs_k1 = (kname == "minsum_compressed_flood"
+                             and code.name != "sc_l64_z96")
+                    if vs_k1:
+                        err = max(err, _diff(got, kernel(
+                            "minsum_flood", code, iters, et)(llr))[0])
                     max_abs_err[kname] = max(max_abs_err[kname], err)
-                    what = (f"{kname} {code.name} kMaxDeg={plan.bucket} "
-                            f"threads={plan.threads} {label} et={et}")
+                    what = (f"{kname} {code.name} {form} {label} "
+                            f"b={llr.shape[0]} et={et}")
                     if err:
                         raise AssertionError(f"{what}: kernel != plain "
                                              f"(max |diff| {err})")
-                    print(f"[3 bucket] {what}: bit-exact, "
-                          f"ok={float(got[1].float().mean()):.4f} "
+                    print(f"[3 bucket] {what}: bit-exact"
+                          f"{' (and == K1)' if vs_k1 else ''}"
+                          f", ok={float(got[1].float().mean()):.4f} "
                           f"mean_iters={float(got[2].double().mean()):.3f}")
     print(f"[3] wall {time.perf_counter() - t_phase:.2f} s")
 

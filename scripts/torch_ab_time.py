@@ -1,8 +1,8 @@
-"""Time the flooding kernel's instantiations (K1, K3, K4, K5, K7 min-sum,
-K8 and the normalized K1) and, as controls, the layered min-sum and
-fixed-point kernels (K2, K5 layered) of tpu_ldpc_torch in several copies
-of the repository on one card, in turns, for A/B comparisons of commits
-in one run.
+"""Time the decode kernels of tpu_ldpc_torch -- every layered
+instantiation (K2, K3, K4, K5, K7 and K9 layered), the compressed-state
+kernel K6 and the flooding kernels (K1, K3, K4, K5, K7 min-sum, K8 and
+the normalized K1) -- in several copies of the repository on one card,
+in turns, for A/B comparisons of commits in one run.
 
     mkdir -p build/ab/base
     git archive <base commit> tpu_ldpc_torch | tar -x -C build/ab/base
@@ -13,14 +13,14 @@ Each argument is a directory holding a ``tpu_ldpc_torch`` package with
 kernels into its own ``build/``, all copies at once; then each is timed
 in a process of its own, in the order given, so base, change, change,
 base puts both under the same card state.  Judged (1024, 512) code,
-batch 4096, ET off, flooding at 50 and layered at 25 iterations, in the
-code's own coordinates but K9 (the normalized K1), K5 at 6 bits, step
-0.25; five rounds of 20 launches each between CUDA events.  Prints the
-card's name and power limit, one JSON line per copy: {"tree": ...,
-kernel: [median ms, [the five rounds]]}, and a table of the medians.
+batch 4096, flooding at 50 and layered at 25 iterations, in the code's
+own coordinates but K9 (normalized), K5 at 6 bits, step 0.25; ET off,
+and ET on ("ET") for the layered kernels and K6 on the same LLRs (noisy all-zero
+codewords at 2.0 dB: with ET off the time does not depend on them); five
+rounds of 20 launches each between CUDA events.  Prints the card's name
+and power limit, one JSON line per copy: {"tree": ..., kernel: [median
+ms, [the five rounds]]}, and a table of the medians.
 """
-
-from __future__ import annotations
 
 import json
 import os
@@ -30,20 +30,41 @@ import sys
 BATCH = 4096
 ROUNDS = 5
 REPS = 20
-# name: (algo, schedule, iterations, build_cuda_decoder keywords)
+Q6 = {"quant_bits": 6, "quant_step": 0.25}
+# name: (algo, schedule, iterations, build_cuda_decoder keywords, ET)
 KERNELS = {
-    "K1 minsum_flood": ("minsum", "flooding", 50, {}),
-    "K3 sumproduct_flood": ("sumproduct", "flooding", 50, {}),
-    "K4 spfast_flood": ("sumproduct-fast", "flooding", 50, {}),
-    "K5 minsum_quant_flood": ("minsum", "flooding", 50,
-                              {"quant_bits": 6, "quant_step": 0.25}),
-    "K7 minsum_flood_bf16": ("minsum", "flooding", 50, {"msg_dtype": "bf16"}),
-    "K8 minsum_rescaled_flood": ("minsum", "flooding", 50, {"rescaled": True}),
+    "K2 minsum_layered": ("minsum", "layered", 25, {}, False),
+    "K3 sumproduct_layered": ("sumproduct", "layered", 25, {}, False),
+    "K4 spfast_layered": ("sumproduct-fast", "layered", 25, {}, False),
+    "K5 minsum_quant_layered": ("minsum", "layered", 25, Q6, False),
+    "K7 minsum_layered_bf16": ("minsum", "layered", 25,
+                               {"msg_dtype": "bf16"}, False),
+    "K7 sumproduct_layered_bf16": ("sumproduct", "layered", 25,
+                                   {"msg_dtype": "bf16"}, False),
+    "K7 spfast_layered_bf16": ("sumproduct-fast", "layered", 25,
+                               {"msg_dtype": "bf16"}, False),
+    "K9 minsum_layered_normalized": ("minsum", "layered", 25,
+                                     {"normalize": True}, False),
+    "K2 minsum_layered ET": ("minsum", "layered", 25, {}, True),
+    "K3 sumproduct_layered ET": ("sumproduct", "layered", 25, {}, True),
+    "K4 spfast_layered ET": ("sumproduct-fast", "layered", 25, {}, True),
+    "K5 minsum_quant_layered ET": ("minsum", "layered", 25, Q6, True),
+    "K7 minsum_layered_bf16 ET": ("minsum", "layered", 25,
+                                  {"msg_dtype": "bf16"}, True),
+    "K6 minsum_compressed_flood": ("minsum", "flooding", 50,
+                                   {"compressed": True}, False),
+    "K6 minsum_compressed_flood ET": ("minsum", "flooding", 50,
+                                      {"compressed": True}, True),
+    "K1 minsum_flood": ("minsum", "flooding", 50, {}, False),
+    "K3 sumproduct_flood": ("sumproduct", "flooding", 50, {}, False),
+    "K4 spfast_flood": ("sumproduct-fast", "flooding", 50, {}, False),
+    "K5 minsum_quant_flood": ("minsum", "flooding", 50, Q6, False),
+    "K7 minsum_flood_bf16": ("minsum", "flooding", 50, {"msg_dtype": "bf16"},
+                             False),
+    "K8 minsum_rescaled_flood": ("minsum", "flooding", 50, {"rescaled": True},
+                                 False),
     "K9 minsum_flood_normalized": ("minsum", "flooding", 50,
-                                   {"normalize": True}),
-    "K2 minsum_layered": ("minsum", "layered", 25, {}),
-    "K5 minsum_quant_layered": ("minsum", "layered", 25,
-                                {"quant_bits": 6, "quant_step": 0.25}),
+                                   {"normalize": True}, False),
 }
 
 
@@ -68,20 +89,19 @@ def _time_tree(tree: str) -> dict:
         raise RuntimeError("torch_ab_time needs a CUDA device")
     _build.load_all()
     code = LdpcCode.judged()
-    # all-zero codeword at 2.0 dB: with ET off the time does not depend on
-    # the LLRs' values
+    # all-zero codewords at 2.0 dB
     sigma2 = 1.0 / (2 * code.rate * 10 ** 0.2)
     rng = np.random.default_rng(1)
     llr = torch.from_numpy((2.0 / sigma2 * (
         1.0 + np.sqrt(sigma2) * rng.normal(size=(BATCH, code.n))))
         .astype(np.float32)).cuda()
     fns = {}
-    for name, (algo, sched, iters, kw) in KERNELS.items():
+    for name, (algo, sched, iters, kw, et) in KERNELS.items():
         kw = {"normalize": False, **kw}
         if kw.get("msg_dtype") == "bf16":
             kw["msg_dtype"] = torch.bfloat16
         fns[name] = build_cuda_decoder(code, algo, iters, 0.75, 0.0, sched,
-                                       False, **kw)
+                                       et, **kw)
 
     def ms(fn):
         start = torch.cuda.Event(enable_timing=True)

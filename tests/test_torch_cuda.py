@@ -25,7 +25,8 @@ from tpu_ldpc_torch import LdpcCode
 from tpu_ldpc_torch.decode import decode
 from tpu_ldpc_torch.decode.cuda_bp import (
     LAUNCHES, build_cuda_decoder, kernel_name)
-from tpu_ldpc_torch.decode.flood_plan import flood_plan
+from tpu_ldpc_torch.decode.flood_plan import compressed_plan, flood_plan
+from tpu_ldpc_torch.decode.layered_plan import layered_plan
 from tpu_ldpc_torch.decode.normalize import coordinates
 from tpu_ldpc_torch.decode.reference import build_decoder
 from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
@@ -212,11 +213,11 @@ def test_quant_kernels_bitexact_vs_plain_and_golden(cuda, family, rate, Z,
 def test_quant_kernel_refuses_other_algos(cuda):
     """The C entry points return cudaErrorInvalidValue for quantization
     with a CN other than min-sum, with bf16 messages or with a step that
-    is not a power of two, rescaled min-sum with another CN, a flooding
-    block size or bucket the code does not fit, and compressed rows of
-    degree > 8; the Python entry points raise first."""
+    is not a power of two, rescaled min-sum with another CN, a flooding or
+    layered block shape, bucket or stride the code does not fit, and
+    compressed rows of degree > 8 or a block the form does not take; the
+    Python entry points raise first."""
     from tpu_ldpc_torch._build import load_library
-    from tpu_ldpc_torch.codes_device import to_device
 
     _, code = codes("judged", "1/2", 64)
     llr = torch.zeros((4, code.n), device=cuda)
@@ -228,32 +229,42 @@ def test_quant_kernel_refuses_other_algos(cuda):
         build_cuda_decoder(code, "sumproduct-fast", schedule="layered",
                            quant_bits=6)
     assert LAUNCHES == before
-    dc = to_device(code, cuda)
     out = torch.empty((4, code.n), dtype=torch.uint8, device=cuda)
     ok = torch.empty(4, dtype=torch.bool, device=cuda)
     iu = torch.empty(4, dtype=torch.int32, device=cuda)
-    zeros = torch.zeros(code.nb, dtype=torch.int32, device=cuda)
     io = (llr.data_ptr(), out.data_ptr(), ok.data_ptr(), iu.data_ptr())
     stream = torch.cuda.current_stream().cuda_stream
+    E = code.layout.E
+
+    def on_card(plan):
+        arrays = [np.array(x) for x in plan.tables().values()]
+        return [torch.from_numpy(x.view(np.int16) if x.dtype == np.uint16
+                                 else x).to(cuda) for x in arrays]
+
     lib = load_library("bp_layered")
-    for algo, bf16 in ((2, 0), (0, 1)):
+    lplan = layered_plan(code, tuple(int(s) for s in code.layout.edge_shift))
+    ltabs = [t.data_ptr() or None for t in on_card(lplan)]
+    shape = (lplan.bucket, lplan.group, lplan.cw_threads, lplan.threads,
+             lplan.idx_stride, lplan.r_stride)
+    for algo, bf16, quantized, step, (bucket, group, cw, threads, ei, er) in (
+            (2, 0, 1, 0.25, shape), (0, 1, 1, 0.25, shape),
+            # step not a power of two (the quantizer multiplies by the
+            # exact reciprocal)
+            (0, 0, 1, 0.3, shape),
+            (0, 0, 0, 0.25, (8, 4, 64, 224, 54, 51)),  # threads < 4 x 64
+            (0, 0, 0, 0.25, (8, 4, 64, 250, 54, 51)),  # not whole warps
+            (0, 0, 0, 0.25, (12, 4, 64, 256, 54, 51)),  # no such bucket
+            (0, 0, 0, 0.25, (8, 4, 32, 256, 54, 51)),  # a bucket walks r
+            (0, 0, 0, 0.25, (8, 4, 64, 256, 53, 51)),  # odd uint16 stride
+            (0, 0, 0, 0.25, (8, 4, 64, 256, 54, 50))):  # R stride < E
         err = lib.ldpc_bp_layered(
-            algo, *io, dc.edge_col.data_ptr(), dc.edge_shift.data_ptr(),
-            dc.row_ptr.data_ptr(), zeros.data_ptr(), 4, code.Z, code.mb,
-            code.nb, dc.E, 5, 0.75, 0.0, 1, bf16, 1, 0.25, 31.0, 7.75, 31.75,
-            stream)
+            algo, *io, *ltabs, None, 4, code.Z, code.mb, code.nb, E, bucket,
+            group, cw, threads, ei, er, 5, 0.75, 0.0, 1, bf16, quantized,
+            step, 31.0, 7.75, 31.75, stream)
         assert err != 0
-    # the quantized layered kernel also refuses a step that is not a power
-    # of two (its quantizer multiplies by the exact reciprocal)
-    err = lib.ldpc_bp_layered(
-        0, *io, dc.edge_col.data_ptr(), dc.edge_shift.data_ptr(),
-        dc.row_ptr.data_ptr(), zeros.data_ptr(), 4, code.Z, code.mb,
-        code.nb, dc.E, 5, 0.75, 0.0, 1, 0, 1, 0.3, 31.0, 9.3, 37.2, stream)
-    assert err != 0
     lib = load_library("bp_flood")
     plan = flood_plan(code, tuple(int(s) for s in code.layout.edge_shift))
-    tabs = [torch.from_numpy(np.array(x)).to(cuda).data_ptr()
-            for x in plan.tables().values()]
+    tabs = [t.data_ptr() for t in on_card(plan)]
     for algo, bf16, rescaled, quantized, step, bucket, threads in (
             (2, 0, 0, 1, 0.25, 8, 512), (1, 0, 1, 0, 0.25, 8, 512),
             (0, 1, 1, 0, 0.25, 8, 512), (0, 0, 1, 1, 0.25, 8, 512),
@@ -262,17 +273,21 @@ def test_quant_kernel_refuses_other_algos(cuda):
             (0, 0, 0, 0, 0.25, 8, 500),  # not whole warps
             (0, 0, 0, 0, 0.25, 12, 512)):  # no such bucket
         err = lib.ldpc_bp_flood(
-            algo, *io, *tabs, None, 4, code.Z, code.mb, code.nb, dc.E,
+            algo, *io, *tabs, None, 4, code.Z, code.mb, code.nb, E,
             bucket, threads, 5, 0.75, 0.0, 1, bf16, rescaled, 1.0 / 0.75,
             quantized, step, 31.0, 7.75, 31.75, stream)
         assert err != 0
     lib = load_library("bp_compressed")
-    err = lib.ldpc_bp_compressed(
-        *io, dc.edge_row.data_ptr(), dc.edge_col.data_ptr(),
-        dc.edge_shift.data_ptr(), dc.row_ptr.data_ptr(),
-        dc.col_slots.data_ptr(), dc.col_deg.data_ptr(), 4, code.Z, code.mb,
-        code.nb, 9, int(dc.col_slots.shape[1]), 5, 0.75, 0.0, 1, stream)
-    assert err != 0
+    ctabs = [t.data_ptr() for t in on_card(compressed_plan(code))]
+    for max_row_deg, one_check, threads in (
+            (9, 1, 512),  # the sign byte holds 8 slots
+            (7, 1, 480),  # fewer threads than checks
+            (7, 0, 512),  # the walking form's block is 256
+            (7, 1, 500)):  # not whole warps
+        err = lib.ldpc_bp_compressed(
+            *io, *ctabs, 4, code.Z, code.mb, code.nb, E, max_row_deg,
+            one_check, threads, 5, 0.75, 0.0, 1, stream)
+        assert err != 0
 
 
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
@@ -528,3 +543,42 @@ def test_flood_buckets_vs_plain_and_golden(cuda, family, rate, Z, ebn0,
                     alpha=0.75, dtype=np.float32, early_stop=early_stop,
                     **q))
 
+
+@pytest.mark.parametrize("family,rate,Z,ebn0,bucket", BUCKET_CODES)
+def test_layered_buckets_vs_plain_and_golden(cuda, family, rate, Z, ebn0,
+                                             bucket):
+    """The layered body on the same codes: judged (8 slots, 4 codewords a
+    block), wifi 3/4 Z=27 (16), wimax 5/6 Z=48 (32), wimax 1/2 Z=96
+    (16, 2 codewords a block) and the two-pass form for a row of degree
+    40.  Min-sum, sumproduct-fast and fixed-point, plain and normalized
+    coordinates, ET on and off, 257 frames (a partial last block), the
+    +-0.0 and 1e4 rows included: bit-exact with the plain version and
+    with golden float32 (its first rows)."""
+    if family == "deg40":
+        ref, code = wide_codes()
+        rng = np.random.default_rng(4)
+        llr_np = (2.0 + 1.5 * rng.normal(size=(257, code.n))).astype(
+            np.float32)
+        llr_np[1, ::3] = -0.0
+        llr_np[2, ::5] = 1e4
+    else:
+        ref, code = codes(family, rate, Z)
+        llr_np = special_llrs(code, ebn0)
+    plan = layered_plan(code, coordinates(code, False)[0])
+    assert plan.bucket == (bucket if bucket or family == "deg40" else 16)
+    llr = torch.from_numpy(llr_np).to(cuda)
+    for algo, q in (("minsum", {}), ("sumproduct-fast", {}),
+                    ("minsum", dict(quant_bits=6, quant_step=0.25))):
+        for normalize in (False, True):
+            for early_stop in (True, False):
+                args = (code, algo, 25, 0.75, 0.0, "layered", early_stop)
+                fn = build_cuda_decoder(*args, normalize=normalize, **q)
+                before = LAUNCHES[fn.kernel]
+                got = fn(llr)
+                assert LAUNCHES[fn.kernel] == before + 1
+                assert_same(got, build_decoder(*args, normalize=normalize,
+                                               **q)(llr))
+                assert_same([x[:GOLDEN_ROWS] for x in got], golden_decode(
+                    ref.H, llr_np[:GOLDEN_ROWS], algo=algo, iters=25,
+                    alpha=0.75, schedule="layered", dtype=np.float32,
+                    early_stop=early_stop, **q))

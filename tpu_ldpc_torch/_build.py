@@ -130,30 +130,30 @@ def _declare(lib) -> None:
         lib.ldpc_bp_layered.argtypes = [
             i,                   # algo
             p, p, p, p,          # llr, bits, ok, iters_used
-            p, p, p, p,          # edge_col, edge_shift, row_ptr, col_off
+            p, p, p, p,          # p_idx, row_ptr, e_p, e_shift
+            p,                   # col_off
             i, i, i, i, i,       # batch, Z, mb, nb, E
+            i, i, i, i,          # bucket, group, cw_threads, threads
+            i, i,                # idx_stride, r_stride
             i, f, f, i,          # iters, alpha, beta, early_stop
             i,                   # msg_bf16
             i, f, f, f, f,       # quantized, step, kmax, lim_msg, lim_post
             p,                   # stream
         ]
         lib.ldpc_bp_layered.restype = ctypes.c_int
-        lib.ldpc_bp_layered_smem_bytes.argtypes = [i, i, i, i]
+        lib.ldpc_bp_layered_smem_bytes.argtypes = [i] * 9
         lib.ldpc_bp_layered_smem_bytes.restype = ctypes.c_size_t
-        lib.ldpc_bp_layered_threads.argtypes = [i]
-        lib.ldpc_bp_layered_threads.restype = ctypes.c_int
     if hasattr(lib, "ldpc_bp_compressed"):
         lib.ldpc_bp_compressed.argtypes = [
             p, p, p, p,          # llr, bits, ok, iters_used
-            p, p, p, p, p, p,    # edge_row, edge_col, edge_shift, row_ptr,
-                                 # col_slots, col_deg
-            i, i, i, i,          # batch, Z, mb, nb
-            i, i, i,             # max_row_deg, max_col_deg, iters
+            p, p, p, p,          # cn_p, cn_deg, vn_info, vn_check
+            i, i, i, i, i,       # batch, Z, mb, nb, E
+            i, i, i, i,          # max_row_deg, one_check, threads, iters
             f, f, i,             # alpha, beta, early_stop
             p,                   # stream
         ]
         lib.ldpc_bp_compressed.restype = ctypes.c_int
-        lib.ldpc_bp_compressed_smem_bytes.argtypes = [i, i, i]
+        lib.ldpc_bp_compressed_smem_bytes.argtypes = [i, i, i, i, i]
         lib.ldpc_bp_compressed_smem_bytes.restype = ctypes.c_size_t
     lib.ldpc_cuda_error_string.argtypes = [i]
     lib.ldpc_cuda_error_string.restype = ctypes.c_char_p

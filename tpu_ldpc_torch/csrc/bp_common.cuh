@@ -1,17 +1,18 @@
 // Shared pieces of the BP decode kernels (bp_flood.cu, bp_layered.cu,
-// bp_compressed.cu): circulant index arithmetic, the standalone syndrome,
-// the check-node (CN) updates, the two quantization policies and the two
-// message-storage policies, all as template parameters, and the
-// compressed row state's pack and reconstruct.
+// bp_compressed.cu): circulant index arithmetic, the check-node (CN)
+// updates, the two quantization policies and the two message-storage
+// policies, all as template parameters, and the compressed row state's
+// pack and reconstruct.
 //
 // A CN update is run by one thread over one check's edges in edge order:
 //   cn.add(t, q)   slot t = 0 .. deg-1 of the row, in order;
 //   cn.finish(deg) after the last add;
 //   cn.out(t, q)   the CN->VN message of slot t, for the same q.
 // A caller may run add and out in two passes that recompute q from the
-// same operands (bp_layered.cu, and bp_flood.cu for rows of unbounded
+// same operands (bp_flood.cu and bp_layered.cu for rows of unbounded
 // degree), or keep the row's q in registers and run them in one pass
-// (bp_flood.cu).  A one-pass caller goes through add_kept / out_kept,
+// (both, under a row-degree bound).  A one-pass caller goes through
+// add_kept / out_kept,
 // which let a CN update keep one value per edge beside q (exact
 // sum-product keeps phi(|q|), so it evaluates phi twice per edge, not
 // three times, on the same arguments).
@@ -50,26 +51,6 @@ __device__ __forceinline__ int state_index(int v, const int32_t* col_off,
   if (col_off == nullptr) return v;
   const int j = v / Z;
   return j * Z + wrap_sub(v - j * Z, col_off[j], Z);
-}
-
-// Violated checks of hard(P) among this thread's checks (check c =
-// threadIdx.x, threadIdx.x + blockDim.x, ...; c = i * Z + r).
-__device__ __forceinline__ int count_violations(const float* P,
-                                                const int32_t* edge_col,
-                                                const int32_t* edge_shift,
-                                                const int32_t* row_ptr,
-                                                int Z, int m) {
-  int viol = 0;
-  for (int c = threadIdx.x; c < m; c += blockDim.x) {
-    const int i = c / Z;
-    const int r = c - i * Z;
-    int parity = 0;
-    for (int e = row_ptr[i]; e < row_ptr[i + 1]; ++e) {
-      parity ^= P[edge_col[e] * Z + wrap_add(r, edge_shift[e], Z)] < 0.0f;
-    }
-    viol += parity;
-  }
-  return viol;
 }
 
 // Normalized / offset min-sum: the golden sequential two-min scan with

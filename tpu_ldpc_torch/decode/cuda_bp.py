@@ -33,13 +33,13 @@ import numpy as np
 import torch
 
 from tpu_ldpc_torch.codes.code import LdpcCode
-from tpu_ldpc_torch.codes_device import to_device
-from tpu_ldpc_torch.decode.flood_plan import flood_plan
+from tpu_ldpc_torch.decode.flood_plan import (
+    SMEM_LIMIT_BYTES, compressed_plan, flood_plan)
+from tpu_ldpc_torch.decode.layered_plan import layered_plan
 from tpu_ldpc_torch.decode.normalize import coordinates
 from tpu_ldpc_torch.decode.reference import (
     build_decoder, is_bf16, quant_params)
 
-SMEM_LIMIT_BYTES = 232_448  # 227 KB: the most one Hopper block may use
 # ldpc::Algo in bp_common.cuh
 _ALGO_IDS = {"minsum": 0, "sumproduct": 1, "sumproduct-fast": 2}
 _ALGO_NAMES = {"minsum": "minsum", "sumproduct": "sumproduct",
@@ -126,36 +126,42 @@ def build_cuda_decoder(
     if quant_bits is not None:
         qargs = (1, *quant_params(quant_bits, quant_step, quant_post_bits))
     inv_alpha = float(np.float32(1.0) / np.float32(alpha))
-    # device -> (effective shifts, column offsets, the flooding plan's
-    # tables) as int32
+    # device -> (column offsets as int32, the plan's tables)
     tables = {}
 
     def launch(llr: torch.Tensor):
         from tpu_ldpc_torch._build import check, load_library
 
         lib = load_library("bp_compressed" if compressed else
-                           "bp_flood" if schedule == "flooding" else
-                           "bp_layered")
-        dc = to_device(code, llr.device)
-        plan = flood_plan(code, shifts) if flooding else None
+                           "bp_flood" if flooding else "bp_layered")
+        E = code.layout.E
         if compressed:
-            smem = lib.ldpc_bp_compressed_smem_bytes(code.Z, code.mb, code.nb)
+            plan = compressed_plan(code)
+            smem = lib.ldpc_bp_compressed_smem_bytes(
+                code.Z, code.mb, code.nb, E, int(plan.one_check))
         elif flooding:
+            plan = flood_plan(code, shifts)
             smem = lib.ldpc_bp_flood_smem_bytes(code.Z, code.mb, code.nb,
-                                                dc.E, plan.bucket, bf16)
+                                                E, plan.bucket, bf16)
         else:
-            smem = lib.ldpc_bp_layered_smem_bytes(code.Z, code.nb, dc.E, bf16)
+            plan = layered_plan(code, shifts, 2 if bf16 else 4,
+                                bool(early_stop))
+            smem = lib.ldpc_bp_layered_smem_bytes(
+                code.Z, code.mb, code.nb, E, plan.bucket, plan.group,
+                plan.idx_stride, plan.r_stride, bf16)
         if smem > SMEM_LIMIT_BYTES:
             raise ValueError(
                 f"{code.name}: {name} decoder state {smem} B exceeds the "
                 f"{SMEM_LIMIT_BYTES} B of shared memory one block may use")
         if llr.device not in tables:
             tables[llr.device] = (
-                *(torch.tensor(x, dtype=torch.int32, device=llr.device)
-                  for x in (shifts, col_off)),
-                [torch.tensor(x, device=llr.device)
-                 for x in plan.tables().values()] if flooding else [])
-        eshift, coff, ftables = tables[llr.device]
+                torch.tensor(col_off, dtype=torch.int32, device=llr.device),
+                # uint16 index tables go as int16: the kernel reads the bits
+                [torch.from_numpy(np.array(x).view(
+                    np.int16 if x.dtype == np.uint16 else x.dtype)).to(
+                        llr.device) for x in plan.tables().values()])
+        coff, ptabs = tables[llr.device]
+        tab_ptrs = [t.data_ptr() or None for t in ptabs]
         coff_ptr = coff.data_ptr() if any(col_off) else None  # NULL: plain
         batch = llr.shape[0]
         bits = torch.empty((batch, code.n), dtype=torch.uint8,
@@ -170,26 +176,23 @@ def build_cuda_decoder(
             stream = torch.cuda.current_stream().cuda_stream
             if compressed:
                 err = lib.ldpc_bp_compressed(
-                    *outs, dc.edge_row.data_ptr(), dc.edge_col.data_ptr(),
-                    dc.edge_shift.data_ptr(), dc.row_ptr.data_ptr(),
-                    dc.col_slots.data_ptr(), dc.col_deg.data_ptr(), batch,
-                    code.Z, code.mb, code.nb, code.layout.max_row_deg,
-                    int(dc.col_slots.shape[1]), int(iters), float(alpha),
-                    float(beta), int(bool(early_stop)), stream)
+                    *outs, *tab_ptrs, batch, code.Z, code.mb, code.nb, E,
+                    code.layout.max_row_deg, int(plan.one_check),
+                    plan.threads, int(iters), float(alpha), float(beta),
+                    int(bool(early_stop)), stream)
             elif flooding:
                 err = lib.ldpc_bp_flood(
-                    _ALGO_IDS[algo], *outs,
-                    *(t.data_ptr() or None for t in ftables), coff_ptr,
-                    batch, code.Z, code.mb, code.nb, dc.E, plan.bucket,
+                    _ALGO_IDS[algo], *outs, *tab_ptrs, coff_ptr,
+                    batch, code.Z, code.mb, code.nb, E, plan.bucket,
                     plan.threads, int(iters), float(alpha), float(beta),
                     int(bool(early_stop)), int(bf16), int(bool(rescaled)),
                     inv_alpha, *qargs, stream)
             else:
                 err = lib.ldpc_bp_layered(
-                    _ALGO_IDS[algo], *outs, dc.edge_col.data_ptr(),
-                    eshift.data_ptr(), dc.row_ptr.data_ptr(),
-                    coff_ptr, batch, code.Z, code.mb, code.nb, dc.E,
-                    int(iters), float(alpha), float(beta),
+                    _ALGO_IDS[algo], *outs, *tab_ptrs, coff_ptr, batch,
+                    code.Z, code.mb, code.nb, E, plan.bucket, plan.group,
+                    plan.cw_threads, plan.threads, plan.idx_stride,
+                    plan.r_stride, int(iters), float(alpha), float(beta),
                     int(bool(early_stop)), int(bf16), *qargs, stream)
         check(lib, err, f"{name} launch")
         for counter in counters:
