@@ -20,8 +20,12 @@ redesigned flooding body on one code per row-degree bucket (and its
 two-pass form), with ptxas's registers and spills of every instantiation;
 slice 6: the redesigned layered body and compressed-state kernel (K6) on
 one code per bucket and their two-pass and walking forms, K6 against the
-float32 K1, no spill in any judged-code instantiation -- times kernels
-and plain versions with CUDA events, and prints:
+float32 K1, no spill in any judged-code instantiation; slice 7: the
+rate-compatible path (K1 and K2 on the punctured NR-like mothers, the
+dual-diagonal encoder on every registry cell, run_ber against the NR
+rows and both arms of the frozen CRC run, IR-HARQ against its plain run
+and the JAX run's stages, the CLI with --family nr --crc) -- times
+kernels and plain versions with CUDA events, and prints:
 
   - one line per phase;
   - the card's name and power limit (nvidia-smi);
@@ -89,6 +93,27 @@ SPFAST_BAND_DB = 0.08
 # Min-sum in place of sum-product must fall below the bar (a control).
 SP_MIN_AGREEMENT = 0.999
 SP_EBN0 = (2.0, 1.0)
+# slice 7: the NR-like mothers with their two high-degree blocks
+# punctured (codes/nrlike.py::nrlike_adapt), flooding min-sum 50 it, the
+# frozen rows the JAX package wrote: artifacts/nr1_r12_z64_minsum50.csv
+# and artifacts/nr2_r15_z64_minsum50.csv, (Eb/N0, frames, Wilson 95%)
+NR_ROWS = {  # (family, rate): ...
+    ("nr", "1/2"): (1.6, 65536, (1.768744e-03, 2.470534e-03)),
+    ("nr2", "1/5"): (1.0, 32768, (1.206263e-02, 1.454074e-02)),
+}
+# artifacts/crc_undetected.json: nr2_r15_z64 punctured, 50 it, 1.2 dB,
+# 262,144 frames an arm, seed 7: arm -> (FER, undetected); the crc24 arm
+# must stay at <= 1 undetected, the syndrome arm (the control) at >= 1
+CRC_EBN0, CRC_FRAMES, CRC_SEED = 1.2, 262144, 7
+CRC_ARMS = {"syndrome": (0.003482818603515625, 17),
+            "crc24": (0.010097503662109375, 0)}
+# artifacts/nr1_irharq.json (JAX, Z=64, b=4096, seed 0, crc24): per
+# ladder (bg, Eb/N0, stage m -> fer_after of that run)
+HARQ_LADDERS = (
+    (1, 2.0, {7: 0.998046875, 10: 0.2109375, 13: 0.000244140625, 24: 0.0}),
+    (2, 1.5, {7: 0.991455078125, 12: 0.00048828125, 17: 0.0, 27: 0.0,
+              42: 0.0}),
+)
 # the least time the card could take: device memory 3.35 TB/s, FP32
 # outside the tensor cores 67 TFLOP/s (H100 SXM datasheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -264,6 +289,28 @@ def _special_llrs(llr, seed):
     return out
 
 
+def _punctured_llrs(code, batch, ebn0_db, seed):
+    """(batch, n) float32 CPU LLRs of random codewords of an NR-like code
+    with its family's puncturing: +0.0 on the two high-degree blocks,
+    Eb/N0 referenced to the transmitted rate."""
+    import numpy as np
+    import torch
+
+    from tpu_ldpc_torch.channel.adapt import adapted_llrs_from_noise
+    from tpu_ldpc_torch.codes.nrlike import nrlike_adapt
+    from tpu_ldpc_torch.encode.encoder import build_encoder
+
+    adapt = nrlike_adapt(code)
+    tx, known, _ = (torch.from_numpy(a) for a in adapt.masks(code.n, code.k))
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 2, (batch, code.k)).astype(np.uint8)
+    c = build_encoder(code, device="cpu")(torch.from_numpy(u))
+    noise = torch.from_numpy(rng.standard_normal((batch, code.n),
+                                                 dtype=np.float32))
+    return adapted_llrs_from_noise(c, noise, ebn0_db,
+                                   adapt.rate(code.n, code.k), tx, known)
+
+
 def _wilson_interval(errors, trials, z=1.96):
     """Wilson score 95% interval of an error probability."""
     p = errors / trials
@@ -315,22 +362,25 @@ def _bound_ms(code, batch, kind, iters_executed):
                                        else "operations")
 
 
-def _run_ber_check(run_ber, code, cfg, label, seed, frames=65536, ref=None):
-    """run_ber over `frames` frames at 2.0 dB; its Wilson interval must
-    overlap the frozen row's (`ref`, else FROZEN_CI_2DB[label])."""
+def _run_ber_check(run_ber, code, cfg, label, seed, frames=65536, ref=None,
+                   ebn0=2.0, **kw):
+    """run_ber over `frames` frames at `ebn0` dB (`kw`: adapt, crc); its
+    Wilson interval must overlap the frozen row's (`ref`, else
+    FROZEN_CI_2DB[label]).  Returns the SnrResult."""
     t0 = time.perf_counter()
     # run_ber syncs every 8 batches on the card: 8 batches make `frames`
-    res = run_ber(code, [2.0], cfg, batch=min(BATCH, frames // 8),
+    res = run_ber(code, [ebn0], cfg, batch=min(BATCH, frames // 8),
                   target_frame_errors=10**9, max_frames=frames, seed=seed,
-                  device="cuda")[0]
+                  device="cuda", **kw)[0]
     wall = time.perf_counter() - t0
     lo, hi = _wilson_interval(res.frame_errors, res.frames)
     ref = FROZEN_CI_2DB[label] if ref is None else ref
-    print(f"[4 run_ber] judged {label} 2.0 dB frames={res.frames} "
+    print(f"[4 run_ber] {code.name.replace('qc1024_r12', 'judged')} "
+          f"{label} {ebn0} dB frames={res.frames} "
           f"frame_errors={res.frame_errors} FER={res.fer:.4e} "
           f"CI95=[{lo:.4e}, {hi:.4e}] reference={ref} "
-          f"mean_iters={res.mean_iters:.3f} undetected={res.undetected} "
-          f"wall={wall:.2f} s")
+          f"mean_iters={res.mean_iters:.3f} detected={res.detected} "
+          f"undetected={res.undetected} wall={wall:.2f} s")
     if res.frames != frames:
         raise AssertionError(f"run_ber ran {res.frames} frames, not "
                              f"{frames}")
@@ -341,6 +391,7 @@ def _run_ber_check(run_ber, code, cfg, label, seed, frames=65536, ref=None):
     if not (lo <= ref[1] and ref[0] <= hi):
         raise AssertionError(
             f"{label}: FER CI [{lo:.4e}, {hi:.4e}] misses {ref}")
+    return res
 
 
 def main() -> int:
@@ -354,10 +405,14 @@ def main() -> int:
 
     from tpu_ldpc_torch import LdpcCode, _build
     from tpu_ldpc_torch.cli import sim as cli_sim
+    from tpu_ldpc_torch.cli.config import ChannelCfg, CodeSpec
     from tpu_ldpc_torch.decode import decode
     from tpu_ldpc_torch.decode.cuda_bp import (
         LAUNCHES, build_cuda_decoder, reset_launches)
-    from tpu_ldpc_torch.codes.base_graphs import make_sc_base_graph
+    from tpu_ldpc_torch.codes.base_graphs import (
+        FAMILY_LIFTS, make_sc_base_graph)
+    from tpu_ldpc_torch.encode.encoder import build_encoder
+    from tpu_ldpc_torch.sim.harq import run_irharq
     from tpu_ldpc_torch.decode.flood_plan import compressed_plan, flood_plan
     from tpu_ldpc_torch.decode.layered_plan import layered_plan
     from tpu_ldpc_torch.decode.knobs import resolve_twophase_knobs
@@ -655,6 +710,31 @@ def main() -> int:
                           f"{' (and == K1)' if vs_k1 else ''}"
                           f", ok={float(got[1].float().mean()):.4f} "
                           f"mean_iters={float(got[2].double().mean()):.3f}")
+    # slice 7: the NR-like mothers (bucket 0, the two-pass forms) with
+    # punctured LLRs, +0.0 on two blocks of every frame, at their
+    # frozen rows' Eb/N0: K1 and K2, ET on and off, 1024 frames
+    nr_codes = [(CodeSpec(family=family, rate=rate, Z=64).build(), ebn0)
+                for (family, rate), (ebn0, _, _) in NR_ROWS.items()]
+    for ci, (code, ebn0) in enumerate(nr_codes):
+        llr = _punctured_llrs(code, 1024, ebn0, SEED + 30 + ci).to(dev)
+        shifts = coordinates(code, False)[0]
+        for kname in ("minsum_flood", "minsum_layered"):
+            sched, iters = rows[kname][2], rows[kname][3]
+            for et in (True, False):
+                form = (f"kMaxDeg={layered_plan(code, shifts, 4, et).bucket}"
+                        if sched == "layered"
+                        else f"kMaxDeg={flood_plan(code, shifts).bucket}")
+                got = kernel(kname, code, iters, et)(llr)
+                err, _ = _diff(got, plain(kname, code, iters, et)(llr))
+                max_abs_err[kname] = max(max_abs_err[kname], err)
+                what = (f"{kname} {code.name} {form} punctured {ebn0} dB "
+                        f"b=1024 et={et}")
+                if err:
+                    raise AssertionError(f"{what}: kernel != plain (max "
+                                         f"|diff| {err})")
+                print(f"[3 nr] {what}: bit-exact, "
+                      f"ok={float(got[1].float().mean()):.4f} "
+                      f"mean_iters={float(got[2].double().mean()):.3f}")
     print(f"[3] wall {time.perf_counter() - t_phase:.2f} s")
 
     # ---- 4. main paths (counts set to 0 before each, read after) ----------
@@ -918,10 +998,102 @@ def main() -> int:
         print("[4 modes] decode(): K1 in the code's own coordinates, "
               "bit-identical to the normalized kernel")
 
+    def slice7_path():
+        """The rate-compatible transmission path: the dual-diagonal
+        encoder on every registry cell it accepts, run_ber on the
+        punctured NR-like mothers against their frozen rows, both arms
+        of the CRC run, IR-HARQ (kernel against plain, and against the
+        JAX run's stages) and the CLI with --family nr --crc."""
+        import contextlib
+        import dataclasses
+        import io
+
+        cells = [judged] + [LdpcCode.from_family(fam, rate, Z)
+                            for fam in ("wifi", "wimax")
+                            for rate in ("1/2", "2/3", "3/4", "5/6")
+                            for Z in FAMILY_LIFTS[fam]]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        for code in cells:
+            dd = build_encoder(code, "dual_diagonal", device=dev)
+            u = torch.randint(0, 2, (BATCH, code.k), generator=gen,
+                              device=dev, dtype=torch.uint8)
+            if not torch.equal(dd(u), build_encoder(code, device=dev)(u)):
+                raise AssertionError(f"{code.name}: dual_diagonal != "
+                                     "generator")
+        print(f"[4 encode] dual_diagonal == generator on {len(cells)} "
+              f"registry cells at b={BATCH}")
+        cfg = DecodeCfg()
+        for si, ((family, rate), (ebn0, frames, ref)) in enumerate(
+                NR_ROWS.items()):
+            code = CodeSpec(family=family, rate=rate, Z=64).build()
+            _run_ber_check(run_ber, code, cfg, "punctured minsum flooding 50",
+                           7 + si, frames=frames, ref=ref, ebn0=ebn0,
+                           adapt=ChannelCfg().build_adapt(code))
+        code = CodeSpec(family="nr2", rate="1/5", Z=64).build()
+        for arm, (fer, undetected) in CRC_ARMS.items():
+            ref = _wilson_interval(round(fer * CRC_FRAMES), CRC_FRAMES)
+            res = _run_ber_check(
+                run_ber, code, cfg, f"punctured {arm} arm", CRC_SEED,
+                frames=CRC_FRAMES, ref=ref, ebn0=CRC_EBN0,
+                adapt=ChannelCfg().build_adapt(code),
+                crc=None if arm == "syndrome" else arm)
+            print(f"[4 crc] {arm} arm: undetected {res.undetected} "
+                  f"(frozen {undetected}), detected {res.detected}")
+            if arm == "crc24" and res.undetected > 1:
+                raise AssertionError(f"crc24 arm: {res.undetected} "
+                                     "undetected > 1")
+            if arm == "syndrome" and res.undetected < 1:
+                raise AssertionError("syndrome arm: no undetected error, "
+                                     "the control shows nothing")
+        for bg, ebn0, frozen in HARQ_LADDERS:
+            kw = dict(Z=64, stage_m=tuple(frozen), ebn0_db=ebn0, batch=BATCH,
+                      seed=0, crc="crc24", bg=bg, device="cuda")
+            t0 = time.perf_counter()
+            res = run_irharq(**kw)
+            wall = time.perf_counter() - t0
+            ref = run_irharq(impl="torch", **kw)
+            if dataclasses.asdict(res) != dataclasses.asdict(ref):
+                raise AssertionError(f"bg{bg} HARQ: kernel != plain "
+                                     f"({res} against {ref})")
+            for st in res.stages:
+                want = round(frozen[st["m"]] * BATCH)
+                got = round(st["fer_after"] * BATCH)
+                lo, hi = _wilson_interval(got, BATCH)
+                rlo, rhi = _wilson_interval(want, BATCH)
+                print(f"[4 harq] bg{bg} {ebn0} dB m={st['m']}: "
+                      f"undelivered {got} of {BATCH} (JAX run {want}, "
+                      f"difference {got - want}), ok_frac "
+                      f"{st['ok_frac']:.6f}")
+                if not (lo <= rhi and rlo <= hi):
+                    raise AssertionError(
+                        f"bg{bg} m={st['m']}: [{lo:.4e}, {hi:.4e}] misses "
+                        f"[{rlo:.4e}, {rhi:.4e}]")
+            print(f"[4 harq] bg{bg} {ebn0} dB stages {tuple(frozen)}: kernel "
+                  f"== plain on the card field for field; delivered "
+                  f"{res.delivered}, false ACKs {res.false_acks}, "
+                  f"avg bits sent {res.avg_bits_sent:.3f}, info rate "
+                  f"{res.avg_info_rate:.6f}, wall {wall:.2f} s")
+        csv = os.path.join(OUT_DIR, "nr1_r12_z64_crc24.csv")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli_sim.main(["--family", "nr", "--z", "64", "--crc", "crc24",
+                          "--ebn0", "1.6", "--device", "cuda", "--batch",
+                          "4096", "--max-frames", "32768", "--csv", csv])
+        print(out.getvalue(), end="")
+        with open(csv) as f:
+            row = f.read().strip().splitlines()[-1].split(",")
+        if (int(row[1]) < 32768 or "rate adaptation: punctured=128 "
+                not in out.getvalue()):
+            raise AssertionError(f"CLI --family nr --crc: CSV row {row}")
+        print(f"[4 cli] --family nr --crc crc24: wrote {csv}: "
+              f"frames={row[1]} FER={row[7]}")
+
     for label, path, own in (("slice 1", slice1_path, KERNELS[:1]),
                              ("slice 2", slice2_path, KERNELS[1:4]),
                              ("slice 3", slice3_path, KERNELS[4:8]),
-                             ("slice 4", slice4_path, KERNELS[8:])):
+                             ("slice 4", slice4_path, KERNELS[8:]),
+                             ("slice 7", slice7_path, KERNELS[:1])):
         t_phase = time.perf_counter()
         reset_launches()
         path()
@@ -1062,6 +1234,59 @@ def main() -> int:
     print(f"[5 time] MC step judged b={BATCH} 2.0 dB (draw, encode, channel, "
           f"decode ET on, counters): {step_ms:.4f} ms host clock "
           f"= {info_bits / step_ms * 1e3:.4e} info bit/s")
+
+    # slice 7: K1 and K2 on the punctured NR-like mothers, ET off at the
+    # main-path iterations and ET on at the frozen rows' Eb/N0; the
+    # dual-diagonal encoder against the generator path on the judged code
+    for ci, (code, ebn0) in enumerate(nr_codes):
+        nr_llr = _punctured_llrs(code, BATCH, ebn0, SEED + 40 + ci).to(dev)
+        shifts = coordinates(code, False)[0]
+        for kname in ("minsum_flood", "minsum_layered"):
+            sched, iters = rows[kname][2], rows[kname][3]
+            run_off = kernel(kname, code, iters, False)
+            run_on = kernel(kname, code, iters, True)
+            run_off(nr_llr)
+            _, _, iu_on = run_on(nr_llr)
+            torch.cuda.synchronize()
+            t_off = [_cuda_time_ms(lambda: run_off(nr_llr), 20)
+                     for _ in range(2)]
+            t_on = _cuda_time_ms(lambda: run_on(nr_llr), 20)
+            iters_on = float(iu_on.double().sum())
+            bound_off, by_off = _bound_ms(code, BATCH, "minsum", BATCH * iters)
+            bound_on, by_on = _bound_ms(code, BATCH, "minsum", iters_on)
+            bucket = (layered_plan(code, shifts, 4, False).bucket
+                      if sched == "layered"
+                      else flood_plan(code, shifts).bucket)
+            k_ms = sum(t_off) / 2
+            # picoseconds per edge, iteration and frame, ET off
+            pe, pe_judged = (ms * 1e9 / (iters * c.layout.E * c.Z * BATCH)
+                             for ms, c in ((k_ms, code),
+                                           (k_times[kname][0], judged)))
+            print(f"[5 nr] {kname} {code.name} kMaxDeg={bucket} b={BATCH} "
+                  f"{iters} it ET off: {k_ms:.4f} ms ({t_off[0]:.4f}, "
+                  f"{t_off[1]:.4f}) = {k_ms / iters:.5f} ms/iteration, "
+                  f"{pe:.4f} ps per edge-iteration (judged "
+                  f"{pe_judged:.4f}: {pe / pe_judged:.4f}x); "
+                  f"bound {bound_off:.5f} ms ({by_off}, "
+                  f"{k_ms / bound_off:.1f}x)")
+            print(f"[5 nr] {kname} {code.name} kMaxDeg={bucket} b={BATCH} "
+                  f"punctured {ebn0} dB ET on (mean iters "
+                  f"{iters_on / BATCH:.3f}): {t_on:.4f} ms; bound "
+                  f"{bound_on:.5f} ms ({by_on}, {t_on / bound_on:.1f}x)")
+    u = torch.randint(0, 2, (BATCH, judged.k), device=dev,
+                      dtype=torch.uint8)
+    encoders = {m: build_encoder(judged, m, device=dev)
+                for m in ("generator", "dual_diagonal")}
+    for fn in encoders.values():
+        fn(u)
+    torch.cuda.synchronize()
+    ts = {m: [] for m in encoders}
+    for m in ("generator", "dual_diagonal", "dual_diagonal", "generator"):
+        ts[m].append(_cuda_time_ms(lambda: encoders[m](u), 20))
+    print(f"[5 encode] judged b={BATCH}: generator (fp64 product) "
+          f"{sum(ts['generator']) / 2:.4f} ms {ts['generator']}, "
+          f"dual_diagonal (XOR of rolls) "
+          f"{sum(ts['dual_diagonal']) / 2:.4f} ms {ts['dual_diagonal']}")
 
     print(f"[5] wall {time.perf_counter() - t_phase:.2f} s")
 

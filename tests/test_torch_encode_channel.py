@@ -91,8 +91,72 @@ def test_select_encoder_routes_rank_deficient_to_pivot():
 
 
 def test_dual_diagonal_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        build_encoder(toy_code(), "dual_diagonal", device="cpu")
+    """(The name is from before the dual-diagonal path was ported.)  It
+    now encodes the toy code as the JAX package's path and the port's
+    generator path do, and sets .k / .info_cols as they do."""
+    code = toy_code()
+    fn = build_encoder(code, "dual_diagonal", device="cpu")
+    assert fn.k == code.k and fn.info_cols is None
+    u = np.random.default_rng(5).integers(0, 2, (8, code.k)).astype(np.uint8)
+    c = fn(torch.from_numpy(u)).numpy()
+    np.testing.assert_array_equal(
+        c, np.asarray(jax_build_encoder(jax_code(code), "dual_diagonal")(u)))
+    np.testing.assert_array_equal(
+        c, build_encoder(code, device="cpu")(torch.from_numpy(u)).numpy())
+    assert _syndrome_zero(code, c)
+
+
+DUAL_DIAGONAL_CELLS = ["judged"] + [
+    f"{fam}_{rate}" for fam in ("wifi", "wimax")
+    for rate in ("1/2", "2/3", "3/4", "5/6")]
+
+
+@pytest.mark.parametrize("cell", DUAL_DIAGONAL_CELLS)
+def test_dual_diagonal_encoder_exact(cell):
+    """Bit for bit with the JAX package's dual_diagonal and the port's
+    generator path, H c = 0: the judged code and each wifi / wimax rate
+    at its smallest lift."""
+    if cell == "judged":
+        ref = JaxLdpcCode.judged()
+    else:
+        fam, rate = cell.split("_")
+        ref = JaxLdpcCode.from_family(fam, rate, 27 if fam == "wifi" else 24)
+    code = twin(ref)
+    u = np.random.default_rng(11).integers(0, 2, (16, code.k)).astype(
+        np.uint8)
+    c = build_encoder(code, "dual_diagonal", device="cpu")(
+        torch.from_numpy(u))
+    assert c.dtype == torch.uint8 and c.shape == (16, code.n)
+    c = c.numpy()
+    np.testing.assert_array_equal(
+        c, np.asarray(jax_build_encoder(ref, "dual_diagonal")(u)))
+    np.testing.assert_array_equal(
+        c, build_encoder(code, "generator", device="cpu")(
+            torch.from_numpy(u)).numpy())
+    assert _syndrome_zero(code, c)
+
+
+def test_dual_diagonal_refuses_what_jax_refuses():
+    from tpu_ldpc.codes.nrlike import nrlike_code
+
+    ref = nrlike_code("1/2", 16)
+    with pytest.raises(ValueError) as want:
+        jax_build_encoder(ref, "dual_diagonal")
+    with pytest.raises(ValueError) as got:
+        build_encoder(twin(ref), "dual_diagonal", device="cpu")
+    assert str(got.value) == str(want.value)
+    assert "not in dual-diagonal form" in str(got.value)
+    # closing column of weight 3 whose shifts are not (s, 0, s)
+    B = np.asarray(JaxLdpcCode.judged().B).copy()
+    rows = [i for i in range(B.shape[0]) if B[i, 8] >= 0]
+    B[rows[1], 8] = 5
+    bad = JaxLdpcCode.from_base_graph(B, 64, "bad_closing")
+    with pytest.raises(ValueError) as want:
+        jax_build_encoder(bad, "dual_diagonal")
+    with pytest.raises(ValueError) as got:
+        build_encoder(twin(bad), "dual_diagonal", device="cpu")
+    assert str(got.value) == str(want.value)
+    assert "not (s, 0, s)" in str(got.value)
 
 
 @pytest.mark.parametrize("ebn0_db,rate", [(2.0, 0.5), (-1.5, 2 / 3), (4.25, 5 / 6)])

@@ -20,7 +20,10 @@ PORT_MODULES = (
     "tpu_ldpc_torch.decode.cuda_bp", "tpu_ldpc_torch.decode.twophase",
     "tpu_ldpc_torch.decode.normalize",
     "tpu_ldpc_torch.decode.knobs", "tpu_ldpc_torch.encode",
-    "tpu_ldpc_torch.channel", "tpu_ldpc_torch.sim",
+    "tpu_ldpc_torch.channel", "tpu_ldpc_torch.channel.adapt",
+    "tpu_ldpc_torch.channel.bsc", "tpu_ldpc_torch.codes.crc",
+    "tpu_ldpc_torch.codes.nrlike", "tpu_ldpc_torch.sim.harq",
+    "tpu_ldpc_torch.encode.encoder", "tpu_ldpc_torch.sim",
     "tpu_ldpc_torch.sim.state", "tpu_ldpc_torch.sim.search",
     "tpu_ldpc_torch.cli.config",
     "tpu_ldpc_torch.cli.sim", "tpu_ldpc_torch.cli.profile_mc",

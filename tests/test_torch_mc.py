@@ -150,8 +150,16 @@ def test_unsupported_modes_raise(what):
     from tpu_ldpc_torch.cli.sim import main
 
     if what == "nr":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            CodeSpec(family="nr", rate="1/2", Z=32).build()
+        # ported since (it raised before rate adaptation existed): the
+        # NR-like code builds and runs a punctured run_ber point
+        from tpu_ldpc_torch.cli.config import ChannelCfg
+
+        code = CodeSpec(family="nr", rate="1/2", Z=32).build()
+        adapt = ChannelCfg().build_adapt(code)
+        assert code.name == "nr1_r12_z32" and len(adapt.puncture) == 64
+        res = run_ber(code, [1.5], DecodeCfg(iters=10), batch=8,
+                      max_frames=8, adapt=adapt, device="cpu")[0]
+        assert res.frames == 8 and res.bits == 8 * code.k
         return
     if what in ("mesh", "profile"):
         flag = {"mesh": ["--mesh"], "profile": ["--profile", "p"]}[what]

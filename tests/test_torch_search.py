@@ -60,7 +60,9 @@ def test_search_matches_jax(monkeypatch, target, lo, hi, converged):
         target_frame_errors=40, batch=64, seed=3)
     assert [c[:5] for c in port_calls] == [c[:5] for c in jax_calls]
     assert all(c[5] is cfg for c in port_calls)
-    assert {c[6] for c in port_calls} == {("device",)}
+    # run_ber gets adapt as in the JAX package (which also passes mesh)
+    assert {c[6] for c in port_calls} == {("adapt", "device")}
+    assert {c[6] for c in jax_calls} == {("adapt", "mesh")}
     assert port_calls[0][1] == int(4 * 40 / target)  # default max_frames
     assert got.converged == want.converged == converged
     assert got.bracket == want.bracket
@@ -83,3 +85,21 @@ def test_search_rejects_bad_targets(monkeypatch):
             port_search.find_ebn0_at_fer(None, target, device="cpu")
     with pytest.raises(TypeError):
         port_search.find_ebn0_at_fer(None, 1e-2)  # device is required
+
+
+def test_search_forwards_adapt(monkeypatch):
+    """Every probe runs with the search's rate adaptation, as in JAX."""
+    from tpu_ldpc_torch import LdpcCode
+    from tpu_ldpc_torch.channel.adapt import RateAdapt
+
+    adapt = RateAdapt.from_blocks(LdpcCode.judged(), puncture_blocks=(15,))
+    seen = []
+
+    def run_ber(code, grid, adapt=None, **kw):
+        seen.append(adapt)
+        return [Probe(grid[0], waterfall(grid[0]), kw["max_frames"])]
+
+    monkeypatch.setattr(port_search, "run_ber", run_ber)
+    sr = port_search.find_ebn0_at_fer(None, 1e-2, adapt=adapt, device="cpu")
+    assert sr.converged and len(seen) == len(sr.probes) > 2
+    assert all(a is adapt for a in seen)

@@ -12,24 +12,29 @@ fixed-point min-sum, on the flooding or the layered schedule, early
 termination on or off, in one pass or in two phases with straggler
 compaction, and the search for the Eb/N0 at a target FER.  Slice 4 adds
 the JAX Pallas builder's modes: shift normalization, rescaled min-sum,
-bf16 message storage and the compressed row state:
+bf16 message storage and the compressed row state.  Slices 5-6
+redesigned the flooding and layered kernel bodies for the H100.  Slice 7
+adds the rate-compatible transmission path: the dual-diagonal encoder,
+the NR-like BG1/BG2 families, puncturing and shortening, the BSC, an
+outer CRC that gates the counters, and IR-HARQ:
 
 - ``codes``: LdpcCode, the registry, the Tanner layout, GF(2) algebra;
 - ``codes_device.to_device``: the code's tables as tensors on a device;
-- ``channel``, ``encode``: plain PyTorch;
+- ``channel`` (AWGN, ``RateAdapt``, BSC), ``encode``, ``codes.crc``:
+  plain PyTorch;
 - ``decode.reference``: the plain PyTorch decoder (the CPU path);
 - ``decode.normalize``: the shift-normalization offsets;
 - ``decode.cuda_bp`` (``build_cuda_decoder``) + ``csrc/bp_flood.cu``,
   ``csrc/bp_layered.cu``, ``csrc/bp_compressed.cu``: the hand-written
   CUDA decode kernels for sm_90a;
 - ``decode.twophase``, ``decode.knobs``: two-phase decoding;
-- ``decode.api``, ``sim`` (``run_ber``, ``find_ebn0_at_fer``), ``cli``,
-  ``report``: the public entry points.
+- ``decode.api``, ``sim`` (``run_ber``, ``find_ebn0_at_fer``,
+  ``harq.run_irharq``), ``cli``, ``report``: the public entry points.
 
 Every function takes an explicit ``device`` (or follows its input
 tensor's device) and every random draw an explicit ``torch.Generator``.
 """
 
-__version__ = "0.4.0"
+__version__ = "0.7.0"
 
 from tpu_ldpc_torch.codes.code import LdpcCode  # noqa: F401

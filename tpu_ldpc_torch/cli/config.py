@@ -2,9 +2,9 @@
 JSON + dotted CLI overrides, a provenance hash stamped into every CSV and
 checkpoint.
 
-It builds the judged, wifi, wimax, alist and sc codes.  The NR-like
-families need the puncturing of ``channel/adapt.py`` and raise; the
-channel has no rate adaptation and no CRC yet (ROADMAP Queue 1 item 6).
+It builds the judged, wifi, wimax, NR-like (nr, nr2), alist and sc
+codes; the channel section carries rate adaptation (puncturing and
+shortening, ``channel/adapt.py``) and the outer CRC (``codes/crc.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ class CodeSpec:
     """Which code to build: a registry family cell, an SC chain, an
     alist import, or the judged code."""
 
-    family: str = "judged"   # 'judged' | 'wifi' | 'wimax' | 'sc' | 'alist'
+    # 'judged' | 'wifi' | 'wimax' | 'nr' | 'nr2' | 'sc' | 'alist'
+    family: str = "judged"
     rate: str = "1/2"
     Z: int = 64
     path: str = ""           # for family='alist'
@@ -34,10 +35,14 @@ class CodeSpec:
         if self.family == "judged":
             return LdpcCode.judged()
         if self.family in ("nr", "nr2"):
-            raise NotImplementedError(
-                f"family={self.family!r} needs rate adaptation "
-                "(channel/adapt.py), not ported yet (ROADMAP Queue 1 item 6)"
-            )
+            # NR-like rate-compatible families (codes/nrlike.py): 'nr' =
+            # BG1-like (kb=22, rates 1/2..5/6), 'nr2' = BG2-like (kb=10,
+            # rates down to 1/5); ChannelCfg.build_adapt punctures their
+            # first two systematic blocks by default
+            from tpu_ldpc_torch.codes.nrlike import nrlike_code
+
+            return nrlike_code(self.rate, self.Z,
+                               bg=2 if self.family == "nr2" else 1)
         if self.family == "alist":
             from tpu_ldpc_torch.codes.alist import load_alist
 
@@ -55,6 +60,38 @@ class CodeSpec:
 @dataclasses.dataclass(frozen=True)
 class ChannelCfg:
     ebn0_grid: tuple = (1.0, 1.5, 2.0, 2.5, 3.0)
+    # rate adaptation (channel/adapt.py): block-columns of the mother
+    # code to puncture (any block) / shorten (info blocks only)
+    puncture_blocks: tuple = ()
+    shorten_blocks: tuple = ()
+    # outer CRC (codes/crc.py name, e.g. "crc24"): attached to the info
+    # block; it gates the detected / undetected counters (sim/mc.py)
+    crc: str | None = None
+
+    def build_adapt(self, code):
+        """RateAdapt for this config, or None when not adapted.
+
+        NR-like registry cells default to their family's contract (the
+        two high-degree systematic blocks are never transmitted) unless
+        the config names an adaptation."""
+        if not self.puncture_blocks and not self.shorten_blocks:
+            import re
+
+            # exact registry-cell names only (nr1_r12_z64 etc.): the HARQ
+            # stage codes (nr1_m24_z64) and user codes whose names merely
+            # start with the prefix are not punctured
+            if re.fullmatch(r"nr[12]_r\d+_z\d+", code.name):
+                from tpu_ldpc_torch.codes.nrlike import nrlike_adapt
+
+                return nrlike_adapt(code)
+            return None
+        from tpu_ldpc_torch.channel.adapt import RateAdapt
+
+        return RateAdapt.from_blocks(
+            code,
+            puncture_blocks=self.puncture_blocks,
+            shorten_blocks=self.shorten_blocks,
+        )
 
 
 @dataclasses.dataclass(frozen=True)

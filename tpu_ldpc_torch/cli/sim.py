@@ -10,6 +10,8 @@
         --quant-bits 6 --quant-step 0.25
     python -m tpu_ldpc_torch.cli.sim --family judged \
         --algo sumproduct-fast --find-fer 1e-2 --ebn0 1.5 2.5
+    python -m tpu_ldpc_torch.cli.sim --family nr --rate 1/2 --z 64 \
+        --crc crc24 --ebn0 1.6
 
 ``--device`` defaults to cuda and raises without a card; ``--device cpu``
 runs the plain PyTorch path.  ``--algo`` minsum | sumproduct |
@@ -18,6 +20,10 @@ torch | cuda | twophase (with ``--phase1-iters`` / ``--compact-budget``),
 fixed-point min-sum with ``--quant-bits`` / ``--quant-step`` /
 ``--quant-post-bits``.  ``--find-fer FER`` bisects for the Eb/N0 at that
 FER between min and max of ``--ebn0`` instead of sweeping.
+``--family nr | nr2`` builds the NR-like codes (their two high-degree
+systematic blocks punctured unless ``--puncture-blocks`` /
+``--shorten-blocks`` name another adaptation); ``--crc`` attaches an
+outer CRC that gates the detected / undetected counters.
 ``--algo bitflip | wbf``, ``--schedule windowed``, ``--mesh`` and
 ``--profile`` are not ported yet and raise.
 """
@@ -61,6 +67,13 @@ def build_parser():
                         "(default 0.5)")
     p.add_argument("--quant-post-bits", type=int,
                    help="fixed-point emulation: APP width (default bits+2)")
+    p.add_argument("--puncture-blocks", type=int, nargs="+", metavar="B",
+                   help="block-columns to puncture (rate adaptation)")
+    p.add_argument("--shorten-blocks", type=int, nargs="+", metavar="B",
+                   help="info block-columns to shorten (rate adaptation)")
+    p.add_argument("--crc", choices=["crc8", "crc16", "crc24", "crc32"],
+                   help="attach an outer CRC to the info block and gate "
+                        "the detected / undetected counters on it")
     p.add_argument("--impl", choices=["auto", "torch", "cuda", "jnp",
                                       "pallas", "twophase"])
     p.add_argument("--phase1-iters", type=int,
@@ -105,13 +118,17 @@ def args_to_config(args):
         "run.max_frames": args.max_frames, "run.seed": args.seed,
         "run.state_path": args.checkpoint, "run.out_csv": args.csv,
         "run.jsonl": args.jsonl, "run.step_jsonl": args.step_jsonl,
-        "run.device": args.device,
+        "run.device": args.device, "channel.crc": args.crc,
     }
     for k, v in direct.items():
         if v is not None:
             overrides.append(f"{k}={json.dumps(v)}")
     if args.ebn0:
         overrides.append(f"channel.ebn0_grid={json.dumps(args.ebn0)}")
+    for key in ("puncture_blocks", "shorten_blocks"):
+        blocks = getattr(args, key)
+        if blocks is not None:
+            overrides.append(f"channel.{key}={json.dumps(blocks)}")
     return SimConfig.from_sources(args.config, overrides)
 
 
@@ -127,6 +144,7 @@ def main(argv=None):
     from tpu_ldpc_torch.sim.state import SweepState
 
     code = cfg.code.build()
+    adapt = cfg.channel.build_adapt(code)
     chash = cfg.config_hash()
     state = (
         SweepState(cfg.run.state_path, chash) if cfg.run.state_path else None
@@ -140,8 +158,8 @@ def main(argv=None):
             code, args.find_fer, cfg=cfg.decode,
             lo=min(grid), hi=max(grid),
             target_frame_errors=cfg.run.target_frame_errors,
-            batch=cfg.run.batch, seed=cfg.run.seed, progress=True,
-            device=cfg.run.device,
+            batch=cfg.run.batch, seed=cfg.run.seed, adapt=adapt,
+            progress=True, device=cfg.run.device,
         )
         status = "converged" if sr.converged else "OUT OF RANGE"
         print(f"\nEb/N0 @ FER {args.find_fer:.2e}: {sr.ebn0_db:.3f} dB "
@@ -162,10 +180,17 @@ def main(argv=None):
         progress=True,
         state=state,
         step_log=cfg.run.step_jsonl or None,
+        adapt=adapt,
+        crc=cfg.channel.crc,
         device=cfg.run.device,
     )
     wall = time.time() - t0
 
+    if adapt is not None:
+        k_eff, n_tx = adapt.dims(code.n, code.k)
+        print(f"rate adaptation: punctured={len(adapt.puncture)} "
+              f"shortened={len(adapt.shorten)} -> "
+              f"(n_tx={n_tx}, k_eff={k_eff}, R_eff={k_eff / n_tx:.3f})")
     print(f"\ncode={code.name} (n={code.n}, k={code.k}, R={code.rate:.3f}) "
           f"algo={cfg.decode.algo} iters={cfg.decode.iters} "
           f"schedule={cfg.decode.schedule} impl={cfg.decode.impl} "

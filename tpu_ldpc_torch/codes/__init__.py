@@ -1,5 +1,6 @@
 """Code construction: base graphs, QC lifting, layout compiler, GF(2)
-algebra and code-file I/O (NumPy / SciPy; the port's own copies of the
+algebra, code-file I/O, the NR-like rate-compatible family and the outer
+CRC (NumPy / SciPy; the port's own copies of the
 JAX package's framework-free modules, with the same names)."""
 
 from tpu_ldpc_torch.codes.base_graphs import (  # noqa: F401
@@ -16,3 +17,8 @@ from tpu_ldpc_torch.codes.base_graphs import (  # noqa: F401
 )
 from tpu_ldpc_torch.codes.code import LdpcCode  # noqa: F401
 from tpu_ldpc_torch.codes.expand import expand, rotate  # noqa: F401
+from tpu_ldpc_torch.codes.nrlike import (  # noqa: F401
+    make_nrlike_base_graph,
+    nrlike_adapt,
+    nrlike_code,
+)

@@ -53,4 +53,8 @@ def parity_map(H) -> np.ndarray:
     k = n - m
     A, B = Hd[:, :k], Hd[:, k:]
     Binv = gf2_inv(B)
-    return (Binv.astype(np.int64) @ A.astype(np.int64) % 2).astype(np.uint8)
+    # float64 BLAS, exact: every partial sum is an integer <= m < 2^53
+    # (NumPy's int64 product does not use BLAS and is some 500x slower on
+    # the NR-like mothers at Z=64)
+    return ((Binv.astype(np.float64) @ A.astype(np.float64)) % 2).astype(
+        np.uint8)

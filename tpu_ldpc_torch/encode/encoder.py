@@ -4,14 +4,17 @@
     matrix product followed by mod 2.  Every partial sum is an integer
     <= k < 2^53, so the product is exact on any device and under any
     float32 matmul precision setting (TF32 never applies to float64).
+(b) ``dual_diagonal``: O(n) back-substitution over the 802.11n-style
+    parity structure every registry code is built with (closing weight-3
+    column with shifts (s, 0, s) at block-rows (0, mb//2, mb-1), shift-0
+    dual diagonal): summing all block-rows cancels the dual diagonal and
+    the two P^s terms, giving p0 = sum_i A_i u, then p_{i+1}
+    back-substitutes.  Integer XOR of circulant rolls, no float product.
 (c) ``pivot``: the general path for arbitrary H, including rank-deficient
     matrices (terminated SC-LDPC chains): GF(2) row reduction picks a
     pivot / information-set split and the pivot bits are one matrix
     product.  ``encode_fn.k`` is the true dimension n - rank(H) and
     ``encode_fn.info_cols`` maps info bits to codeword positions.
-
-The O(n) ``dual_diagonal`` path (b) is not ported yet (ROADMAP Queue 1
-item 2).
 """
 
 from __future__ import annotations
@@ -72,10 +75,52 @@ def _build_encoder(code: LdpcCode, method: str, device: torch.device):
         return encode_fn
 
     if method == "dual_diagonal":
-        raise NotImplementedError(
-            "encode method 'dual_diagonal' is not ported yet "
-            "(ROADMAP Queue 1 item 2); use 'generator' or 'pivot'"
-        )
+        B, Z, mb, nb = code.B, code.Z, code.mb, code.nb
+        kb = nb - mb
+        # closing column structure
+        h_rows = [i for i in range(mb) if B[i, kb] >= 0]
+        if len(h_rows) != 3 or h_rows[0] != 0 or h_rows[-1] != mb - 1:
+            raise ValueError(
+                f"{code.name}: parity part is not in dual-diagonal form"
+            )
+        r_mid = h_rows[1]
+        s_top = int(B[0, kb])
+        if int(B[r_mid, kb]) != 0 or int(B[mb - 1, kb]) != s_top:
+            raise ValueError(
+                f"{code.name}: closing column shifts are not (s, 0, s)"
+            )
+        info_blocks = [
+            [(j, int(B[i, j])) for j in range(kb) if B[i, j] >= 0]
+            for i in range(mb)
+        ]
+
+        def encode_fn(u: torch.Tensor) -> torch.Tensor:
+            u = u.to(torch.uint8)
+            ub = u.reshape(u.shape[0], kb, Z)
+            # s_i = A_i u: XOR of the block-row's rolled info blocks
+            s = []
+            for i in range(mb):
+                acc = torch.zeros_like(ub[:, 0, :])
+                for j, sh in info_blocks[i]:
+                    acc ^= torch.roll(ub[:, j, :], -sh, dims=-1)
+                s.append(acc)
+            # p0 = sum of all block-row syndromes
+            p0 = s[0].clone()
+            for i in range(1, mb):
+                p0 ^= s[i]
+            # back-substitution
+            p = [p0, s[0] ^ torch.roll(p0, -s_top, dims=-1)]
+            for i in range(1, mb - 1):
+                nxt = s[i] ^ p[i]
+                if i == r_mid:
+                    nxt ^= p0  # shift-0 closing-column entry
+                p.append(nxt)
+            return torch.cat([u, torch.cat(p, dim=1)], dim=1)
+
+        encode_fn.k = code.k
+        encode_fn.info_cols = None
+        return encode_fn
+
     raise ValueError(f"unknown encode method {method!r}")
 
 

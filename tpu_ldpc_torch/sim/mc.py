@@ -13,6 +13,15 @@ Mersenne Twister on the CPU), not JAX's Threefry: counters agree with
 the JAX harness statistically, not draw for draw.  The draw is split
 from the count (``BatchFn.draw`` / ``BatchFn.batch_counters``) so tests
 can feed both packages the same inputs.
+
+Rate adaptation (``channel/adapt.py::RateAdapt``) and an outer CRC
+(``codes/crc.py``) follow the JAX harness: shortened info bits are zeros
+and are not counted, punctured positions get LLR +0.0 and shortened ones
++SHORT_LLR, Eb/N0 is referenced to k_eff / n_tx; with a CRC the info
+block is [payload | crc(payload)], errors count over the payload, and
+detected / undetected mean CRC failed / CRC passed on a wrong payload.
+Without either, a batch draws u (batch, k) and then the noise from its
+generator: the regroup and resume identities rest on that order.
 """
 
 from __future__ import annotations
@@ -27,7 +36,10 @@ import numpy as np
 import torch
 
 from tpu_ldpc_torch.codes.code import LdpcCode
+from tpu_ldpc_torch.channel.adapt import adapted_llrs_from_noise
 from tpu_ldpc_torch.channel.awgn import llrs_from_noise
+from tpu_ldpc_torch.codes.crc import (
+    get_spec, make_crc_attacher, make_crc_checker)
 from tpu_ldpc_torch.codes_device import resolve_device
 from tpu_ldpc_torch.decode.api import build_decode_fn
 from tpu_ldpc_torch.encode.encoder import select_encoder
@@ -55,10 +67,12 @@ class DecodeCfg:
 
 COUNTER_FIELDS = (
     "frames",
-    "bit_errors",      # over info bits
+    "bit_errors",      # over info bits (payload bits when CRC-gated)
     "frame_errors",    # any info bit wrong
-    "detected",        # decoder reported not-ok (syndrome unsatisfied)
-    "undetected",      # syndrome ok but wrong codeword
+    "detected",        # decoder reported not-ok (syndrome unsatisfied);
+    #                    CRC-gated runs: outer CRC failed
+    "undetected",      # syndrome ok but wrong codeword; CRC-gated runs:
+    #                    CRC passed on a wrong payload (false ACK)
     "iter_sum",        # sum of iters_used
 )
 
@@ -118,23 +132,61 @@ def batch_generator(seed: int, snr_idx: int, batch_ctr: int,
 class BatchFn:
     """One Monte-Carlo batch: draw (u, noise), then count.
 
-    ``k`` is the info bits counted per frame (the true dimension for
-    rank-deficient codes, which take the pivot encoder)."""
+    ``k`` is the effective info bits credited per frame: the true
+    dimension for rank-deficient codes (which take the pivot encoder),
+    less the shortened bits of `adapt` and the check bits of `crc`.
 
-    def __init__(self, code: LdpcCode, cfg: DecodeCfg, batch: int, device):
+    adapt: ``channel.adapt.RateAdapt`` or None.  crc: a ``codes/crc.py``
+    name or CrcSpec, or None; with a CRC, `draw` attaches it to a random
+    payload.  A CRC together with shortening raises ValueError (the CRC
+    would span frozen bits); puncturing composes."""
+
+    def __init__(self, code: LdpcCode, cfg: DecodeCfg, batch: int, device,
+                 adapt=None, crc=None):
         self.device = resolve_device(device)
         self.batch, self.n = batch, code.n
-        self.encode_fn, self.k, info_cols = select_encoder(
+        self.encode_fn, k, info_cols = select_encoder(
             code, device=self.device)
         self.decode_fn = build_decode_fn(code, cfg, self.device)
         self.info_cols = (None if info_cols is None
                           else torch.as_tensor(info_cols).to(self.device))
-        # true information rate (k may exceed the design dimension)
-        self.rate = self.k / code.n
+        self.k_info = self.kp = k  # info length, payload length
+        self.crc_attach = self.crc_ok = None
+        if crc is not None:
+            spec = get_spec(crc)
+            self.kp = k - spec.width
+            if self.kp <= 0:
+                raise ValueError(
+                    f"{spec.name} width {spec.width} >= info length {k}")
+            if adapt is not None and not adapt.masks(
+                    code.n, k, info_cols)[2].all():
+                raise ValueError("crc + shortening unsupported: the CRC "
+                                 "would span frozen info bits")
+            self.crc_attach = make_crc_attacher(self.kp, spec,
+                                                device=self.device)
+            self.crc_ok = make_crc_checker(k, spec, device=self.device)
+        self.tx_mask = self.known_llr = self.active_u = None
+        if adapt is not None:
+            k_eff, n_tx = adapt.dims(code.n, k)
+            tx, known, active = (torch.as_tensor(a).to(self.device)
+                                 for a in adapt.masks(code.n, k, info_cols))
+            self.tx_mask, self.known_llr, self.active_u = tx, known, active
+        else:
+            # true information rate (k may exceed the design dimension)
+            k_eff, n_tx = k, code.n
+        k_eff -= k - self.kp  # CRC bits are overhead, not information
+        self.k = k_eff
+        self.rate = k_eff / n_tx
 
     def draw(self, generator: torch.Generator):
-        u = torch.randint(0, 2, (self.batch, self.k), generator=generator,
-                          device=self.device, dtype=torch.uint8)
+        if self.crc_attach is not None:
+            u = self.crc_attach(torch.randint(
+                0, 2, (self.batch, self.kp), generator=generator,
+                device=self.device, dtype=torch.uint8))
+        else:
+            u = torch.randint(0, 2, (self.batch, self.k_info),
+                              generator=generator, device=self.device,
+                              dtype=torch.uint8)
         noise = torch.randn((self.batch, self.n), generator=generator,
                             device=self.device, dtype=torch.float32)
         return u, noise
@@ -142,19 +194,32 @@ class BatchFn:
     def batch_counters(self, u: torch.Tensor, noise: torch.Tensor,
                        ebn0_db: float) -> torch.Tensor:
         """(6,) int64 counters (COUNTER_FIELDS order) on the device."""
+        if self.active_u is not None:
+            u = u * self.active_u  # shortened info bits are zeros
         c = self.encode_fn(u)
-        llr = llrs_from_noise(c, noise, ebn0_db, self.rate)
+        if self.tx_mask is not None:
+            llr = adapted_llrs_from_noise(c, noise, ebn0_db, self.rate,
+                                          self.tx_mask, self.known_llr)
+        else:
+            llr = llrs_from_noise(c, noise, ebn0_db, self.rate)
         bits, ok, iters_used = self.decode_fn(llr)
-        info = (bits[:, :self.k] if self.info_cols is None
+        info = (bits[:, :self.k_info] if self.info_cols is None
                 else bits[:, self.info_cols])
         wrong = info != u
+        if self.active_u is not None:
+            wrong &= self.active_u == 1
+        if self.crc_ok is not None:
+            wrong = wrong[:, :self.kp]  # genie errors over payload bits
+            passed = self.crc_ok(info)
+        else:
+            passed = ok
         frame_wrong = wrong.any(dim=1)
         return torch.stack([
             torch.full((), u.shape[0], dtype=torch.int64, device=u.device),
             wrong.sum(),
             frame_wrong.sum(),
-            (~ok).sum(),
-            (ok & frame_wrong).sum(),
+            (~passed).sum(),
+            (passed & frame_wrong).sum(),
             iters_used.sum(dtype=torch.int64),
         ])
 
@@ -162,14 +227,14 @@ class BatchFn:
         return self.batch_counters(*self.draw(generator), ebn0_db)
 
 
-def build_batch_fn(code: LdpcCode, cfg: DecodeCfg, batch: int, *,
-                   device) -> BatchFn:
-    return BatchFn(code, cfg, batch, device)
+def build_batch_fn(code: LdpcCode, cfg: DecodeCfg, batch: int, adapt=None,
+                   crc=None, *, device) -> BatchFn:
+    return BatchFn(code, cfg, batch, device, adapt, crc)
 
 
 @functools.lru_cache(maxsize=64)
-def _build_mc_step(code, cfg, batch, steps_per_call, device):
-    one_batch = BatchFn(code, cfg, batch, device)
+def _build_mc_step(code, cfg, batch, steps_per_call, device, adapt, crc):
+    one_batch = BatchFn(code, cfg, batch, device, adapt, crc)
 
     def step(seed: int, snr_idx: int, ebn0_db: float, ctr0: int):
         acc = torch.zeros(6, dtype=torch.int64, device=device)
@@ -183,12 +248,12 @@ def _build_mc_step(code, cfg, batch, steps_per_call, device):
 
 
 def build_mc_step(code: LdpcCode, cfg: DecodeCfg, batch: int,
-                  steps_per_call: int = 1, *, device):
+                  steps_per_call: int = 1, adapt=None, crc=None, *, device):
     """MC step: (seed, snr_idx, ebn0_db, ctr0) -> (6,) int64 counters on
     the device, summed over batches ctr0 .. ctr0 + steps_per_call - 1.
     Counter totals are identical for any steps_per_call grouping."""
     return _build_mc_step(code, cfg, batch, steps_per_call,
-                          resolve_device(device))
+                          resolve_device(device), adapt, crc)
 
 
 def default_steps_per_call(device: torch.device) -> int:
@@ -208,6 +273,8 @@ def run_ber(
     state=None,
     steps_per_call: int | None = None,
     step_log: str | None = None,
+    adapt=None,
+    crc=None,
     *,
     device,
 ) -> list[SnrResult]:
@@ -215,11 +282,13 @@ def run_ber(
 
     device='cuda' raises when no card is present; it never runs on the
     CPU instead.  step_log: path for per-call JSONL records (snr,
-    cumulative frames / errors, mean iters, wall time, info bits/s)."""
+    cumulative frames / errors, mean iters, wall time, info bits/s).
+    adapt / crc: rate adaptation and outer CRC (see BatchFn)."""
     device = resolve_device(device)
     if steps_per_call is None:
         steps_per_call = default_steps_per_call(device)
-    step = build_mc_step(code, cfg, batch, steps_per_call, device=device)
+    step = build_mc_step(code, cfg, batch, steps_per_call, adapt, crc,
+                         device=device)
     results = []
     for snr_idx, ebn0 in enumerate(ebn0_grid):
         res = SnrResult(ebn0_db=float(ebn0))

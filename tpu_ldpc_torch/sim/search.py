@@ -35,6 +35,7 @@ def find_ebn0_at_fer(
     max_frames: int | None = None,
     batch: int = 256,
     seed: int = 0,
+    adapt=None,
     progress: bool = False,
     *,
     device,
@@ -46,7 +47,9 @@ def find_ebn0_at_fer(
     frames to resolve target_fer with ~`target_frame_errors` errors).
     Returns a FerSearchResult whose bracket satisfies fer(lo) >= target
     >= fer(hi); `converged` is False when the target lies outside the
-    initial range (the nearest endpoint is returned).
+    initial range (the nearest endpoint is returned).  adapt: rate
+    adaptation of every probe (``channel.adapt.RateAdapt``), Eb/N0
+    referenced to its effective rate.
     """
     if not 0.0 < target_fer < 1.0:
         raise ValueError(f"target_fer must be in (0, 1), got {target_fer}")
@@ -58,7 +61,7 @@ def find_ebn0_at_fer(
         res = run_ber(
             code, [ebn0], cfg=cfg, batch=batch,
             target_frame_errors=target_frame_errors,
-            max_frames=max_frames, seed=seed, device=device,
+            max_frames=max_frames, seed=seed, adapt=adapt, device=device,
         )[0]
         probes.append(res)
         if progress:
