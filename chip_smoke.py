@@ -114,6 +114,20 @@ HARQ_LADDERS = (
     (2, 1.5, {7: 0.991455078125, 12: 0.00048828125, 17: 0.0, 27: 0.0,
               42: 0.0}),
 )
+# slice 8: the hard decoders on the judged code (50 it) are held against
+# their CPU run on the first HARD_CPU_ROWS frames (frames decode
+# independently); the windowed decoder on sc_l32_z64, W=8, 3 iterations
+# per window, min-sum at 2.5 dB over 16384 frames against the frozen
+# rows of artifacts/tpu_windowed_point.json (the JAX decoder's results,
+# 16384 frames: every flooding value there is a multiple of 1/16384):
+# frame errors of the flooding sweep (fer_vs_snr.windowed_W8_ipw3["2.5"]
+# = 0.0640869140625 = 1050/16384) and of the layered sweep
+# (layered_sweep_r5.fer_vs_snr.W8_ipw3["2.5"] = 0.02454, four digits:
+# 402.06 of 16384)
+HARD_CPU_ROWS = 1024
+SC_BATCH = 1024
+WINDOWED_EBN0, WINDOWED_FRAMES = 2.5, 16384
+WINDOWED_ROWS = {"flooding": 1050, "layered": 402}
 # the least time the card could take: device memory 3.35 TB/s, FP32
 # outside the tensor cores 67 TFLOP/s (H100 SXM datasheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -311,6 +325,50 @@ def _punctured_llrs(code, batch, ebn0_db, seed):
                                    adapt.rate(code.n, code.k), tx, known)
 
 
+def _bsc_llrs(code, batch, p, seed):
+    """(LLRs, codewords) of random codewords over a BSC(p), NumPy draws."""
+    import numpy as np
+    import torch
+
+    from tpu_ldpc_torch.channel.bsc import bsc_llrs_from_flips
+    from tpu_ldpc_torch.encode.encoder import build_encoder
+
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 2, (batch, code.k)).astype(np.uint8)
+    c = build_encoder(code, device="cpu")(torch.from_numpy(u))
+    flips = torch.from_numpy(rng.random(c.shape) < p)
+    return bsc_llrs_from_flips(c, flips, p), c
+
+
+def _zero_codeword_llrs(code, batch, ebn0_db, seed):
+    """(batch, n) float32 CPU LLRs of the all-zero codeword (an SC chain's
+    H is rank-deficient), Eb/N0 referenced to the design rate."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sigma2 = 1.0 / (2 * code.rate * 10 ** (ebn0_db / 10))
+    y = 1.0 + np.sqrt(sigma2) * rng.normal(size=(batch, code.n))
+    return torch.from_numpy((2.0 / sigma2 * y).astype(np.float32))
+
+
+def _device_events(fn):
+    """(device events (kernels, copies, fills), their summed duration in
+    ms) of one call of fn, by torch.profiler; (0, 0.0) when the profiler
+    sees no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(spans), sum(spans) / 1e3
+
+
 def _wilson_interval(errors, trials, z=1.96):
     """Wilson score 95% interval of an error probability."""
     p = errors / trials
@@ -363,13 +421,13 @@ def _bound_ms(code, batch, kind, iters_executed):
 
 
 def _run_ber_check(run_ber, code, cfg, label, seed, frames=65536, ref=None,
-                   ebn0=2.0, **kw):
+                   ebn0=2.0, batch=None, **kw):
     """run_ber over `frames` frames at `ebn0` dB (`kw`: adapt, crc); its
     Wilson interval must overlap the frozen row's (`ref`, else
-    FROZEN_CI_2DB[label]).  Returns the SnrResult."""
+    FROZEN_CI_2DB[label]).  batch: None makes `frames` 8 batches (run_ber
+    syncs every 8 batches on the card).  Returns the SnrResult."""
     t0 = time.perf_counter()
-    # run_ber syncs every 8 batches on the card: 8 batches make `frames`
-    res = run_ber(code, [ebn0], cfg, batch=min(BATCH, frames // 8),
+    res = run_ber(code, [ebn0], cfg, batch=batch or min(BATCH, frames // 8),
                   target_frame_errors=10**9, max_frames=frames, seed=seed,
                   device="cuda", **kw)[0]
     wall = time.perf_counter() - t0
@@ -392,6 +450,167 @@ def _run_ber_check(run_ber, code, cfg, label, seed, frames=65536, ref=None,
         raise AssertionError(
             f"{label}: FER CI [{lo:.4e}, {hi:.4e}] misses {ref}")
     return res
+
+
+def _slice8_path(dev, kernel, cli_main):
+    """The hard-decision and windowed decoders through decode(), run_ber
+    and the CLI: bitflip and WBF on the judged code (AWGN 4.0 dB and BSC
+    p=0.002, b=4096, 50 it), the card against the CPU bit for bit, bitflip
+    over the BSC decoding >= 0.9 of frames; the windowed decoder on
+    sc_l32_z64 (W=8, 3 iterations per window, b=1024, both sweeps), the
+    card against the CPU (min-sum and sumproduct-fast bit for bit, exact
+    sum-product on >= SP_MIN_AGREEMENT of 256 frames), its full-window
+    pins against K1 / K2 (kernel(kname, code, iters, early_stop), as
+    main() builds them), run_ber against the frozen 16384-frame rows;
+    the README's windowed CLI example and the bitflip CLI."""
+    import contextlib
+    import io
+
+    import torch
+
+    from tpu_ldpc_torch import LdpcCode
+    from tpu_ldpc_torch.codes.base_graphs import make_sc_base_graph
+    from tpu_ldpc_torch.decode import decode
+    from tpu_ldpc_torch.decode.hard import build_hard_decoder
+    from tpu_ldpc_torch.decode.windowed import build_windowed_decoder
+    from tpu_ldpc_torch.sim.mc import DecodeCfg, run_ber
+
+    judged = LdpcCode.judged()
+    awgn = torch.from_numpy(_noisy_llrs(judged, BATCH, 4.0, SEED + 50))
+    bsc, sent = _bsc_llrs(judged, BATCH, 0.002, SEED + 51)
+    rows = slice(0, HARD_CPU_ROWS)
+    for label, llr in (("AWGN 4.0 dB", awgn), ("BSC p=0.002", bsc)):
+        for algo in ("bitflip", "wbf"):
+            got = [x.cpu() for x in decode(judged, llr.to(dev), algo=algo,
+                                           iters=50)]
+            want = build_hard_decoder(judged, algo, 50, device="cpu")(
+                llr[rows])
+            err, _ = _diff([x[rows] for x in got], want)
+            what = (f"{algo} judged {label} b={llr.shape[0]} 50 it: "
+                    f"ok={float(got[1].double().mean()):.4f} "
+                    f"mean_iters={float(got[2].double().mean()):.3f}")
+            if label.startswith("BSC"):
+                right = float((got[0] == sent).all(dim=1).double().mean())
+                what += f" frames decoded={right:.4f}"
+                if algo == "bitflip" and right < 0.9:
+                    raise AssertionError(f"{what}: bitflip over the BSC "
+                                         "decoded < 0.9 of frames")
+            if err:
+                raise AssertionError(f"{what}: card != CPU on the first "
+                                     f"{HARD_CPU_ROWS} frames")
+            print(f"[4 hard] {what}; card == CPU bit for bit on the first "
+                  f"{HARD_CPU_ROWS} frames")
+
+    sc = LdpcCode.from_base_graph(make_sc_base_graph(32, 64), 64,
+                                  "sc_l32_z64")
+    llr = _zero_codeword_llrs(sc, SC_BATCH, 2.0, SEED + 52)
+    for sweep in ("flooding", "layered"):
+        for algo, batch in (("minsum", SC_BATCH),
+                            ("sumproduct-fast", SC_BATCH),
+                            ("sumproduct", 256)):
+            got = [x.cpu() for x in decode(
+                sc, llr[:batch].to(dev), algo=algo, iters=3,
+                schedule="windowed", window=8, window_sweep=sweep)]
+            want = build_windowed_decoder(sc, 8, 3, algo, sweep=sweep,
+                                          device="cpu")(llr[:batch])
+            err, share = _diff(got, want)
+            what = (f"sc_l32_z64 W=8 3 it/window {sweep} {algo} 2.0 dB "
+                    f"b={batch}: ok={float(got[1].double().mean()):.4f}")
+            if algo == "sumproduct":
+                if share < SP_MIN_AGREEMENT:
+                    raise AssertionError(f"{what}: card and CPU agree on "
+                                         f"{share:.6f} of frames")
+                print(f"[4 windowed] {what}; card and CPU agree on "
+                      f"{share:.6f} of frames")
+            elif err:
+                raise AssertionError(f"{what}: card != CPU")
+            else:
+                print(f"[4 windowed] {what}; card == CPU bit for bit")
+    # the full-window pins: one slide of all 34 rows, 12 iterations, is
+    # the flooding decoder (K1) or the layered one (K2) with ET off
+    pin = llr.to(dev)
+    for sweep, kname in (("flooding", "minsum_flood"),
+                         ("layered", "minsum_layered")):
+        got = build_windowed_decoder(sc, sc.mb, 12, sweep=sweep,
+                                     device=dev)(pin)
+        want = kernel(kname, sc, 12, False)(pin)
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"full-window {sweep} != {kname} ET off")
+        print(f"[4 windowed] sc_l32_z64 W=mb=34 12 it {sweep} == {kname} "
+              f"ET off (bits, ok) b={SC_BATCH}, "
+              f"ok={float(got[1].double().mean()):.4f}")
+    for sweep, errors in WINDOWED_ROWS.items():
+        cfg = DecodeCfg(schedule="windowed", window=8, iters=3,
+                        window_sweep=sweep)
+        _run_ber_check(run_ber, sc, cfg, f"windowed W=8 3 it {sweep}", 8,
+                       frames=WINDOWED_FRAMES, batch=SC_BATCH,
+                       ref=_wilson_interval(errors, WINDOWED_FRAMES),
+                       ebn0=WINDOWED_EBN0)
+
+    for argv, what in (
+            (["--family", "sc", "--sc-length", "32", "--z", "64",
+              "--schedule", "windowed", "--window", "8", "--window-sweep",
+              "layered", "--iters", "4", "--ebn0", "3.0", "--max-frames",
+              "4096"], "schedule=windowed window=8 sweep=layered"),
+            (["--family", "judged", "--algo", "bitflip", "--ebn0", "4.0",
+              "--max-frames", "4096"], "algo=bitflip")):
+        csv = os.path.join(OUT_DIR, f"slice8_{argv[1]}.csv")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli_main([*argv, "--device", dev.type, "--csv", csv])
+        with open(csv) as f:
+            row = f.read().strip().splitlines()[-1].split(",")
+        if int(row[1]) < 1 or what not in out.getvalue():
+            raise AssertionError(f"CLI {argv}: CSV row {row}")
+        print(f"[4 cli] {' '.join(argv)}: wrote {csv}: frames={row[1]} "
+              f"FER={row[7]}")
+
+
+def _slice8_times(dev):
+    """ms per batch (CUDA events), info bits/s, device events per decode
+    and their summed device time of the hard decoders (judged, b=4096, 50
+    it) and the windowed decoder (sc_l32_z64, b=1024, W=8)."""
+    import torch
+
+    from tpu_ldpc_torch import LdpcCode
+    from tpu_ldpc_torch.codes.base_graphs import make_sc_base_graph
+    from tpu_ldpc_torch.decode.hard import build_hard_decoder
+    from tpu_ldpc_torch.decode.windowed import build_windowed_decoder
+    from tpu_ldpc_torch.encode.encoder import select_encoder
+
+    t0 = time.perf_counter()
+    judged = LdpcCode.judged()
+    sc = LdpcCode.from_base_graph(make_sc_base_graph(32, 64), 64,
+                                  "sc_l32_z64")
+    k_sc = select_encoder(sc, device=dev)[1]  # the chain's true dimension
+    awgn = torch.from_numpy(_noisy_llrs(judged, BATCH, 4.0, SEED + 50))
+    bsc, _ = _bsc_llrs(judged, BATCH, 0.002, SEED + 51)
+    cases = [(f"{algo} judged {label} b={BATCH} 50 it", judged.k,
+              build_hard_decoder(judged, algo, 50, device=dev), llr.to(dev))
+             for label, llr in (("AWGN 4.0 dB", awgn), ("BSC p=0.002", bsc))
+             for algo in ("bitflip", "wbf")]
+    for sweep, ipw, ebn0 in (("flooding", 3, 2.0), ("layered", 3, 2.0),
+                             ("layered", 4, 3.0)):
+        llr = _zero_codeword_llrs(sc, SC_BATCH, ebn0, SEED + 53).to(dev)
+        cases.append((f"windowed sc_l32_z64 W=8 {ipw} it/window {sweep} "
+                      f"min-sum {ebn0} dB b={SC_BATCH}", k_sc,
+                      build_windowed_decoder(sc, 8, ipw, sweep=sweep,
+                                             device=dev), llr))
+    for what, k, fn, llr in cases:
+        out = fn(llr)  # warm-up
+        torch.cuda.synchronize()
+        ms = [_cuda_time_ms(lambda: fn(llr), 5) for _ in range(2)]
+        events, busy_ms = _device_events(lambda: fn(llr))
+        batch_ms = sum(ms) / 2
+        print(f"[5 slice8] {what}: {batch_ms:.4f} ms/batch ({ms[0]:.4f}, "
+              f"{ms[1]:.4f}) = {llr.shape[0] * k / batch_ms * 1e3:.4e} info "
+              f"bit/s; {events} device events a decode, busy "
+              f"{busy_ms:.4f} ms ({100 * busy_ms / batch_ms:.1f}% of the "
+              f"untraced time; profiler); "
+              f"ok={float(out[1].double().mean()):.4f} "
+              f"mean_iters={float(out[2].double().mean()):.3f}")
+    print(f"[5 slice8] wall {time.perf_counter() - t0:.2f} s")
 
 
 def main() -> int:
@@ -1093,7 +1312,9 @@ def main() -> int:
                              ("slice 2", slice2_path, KERNELS[1:4]),
                              ("slice 3", slice3_path, KERNELS[4:8]),
                              ("slice 4", slice4_path, KERNELS[8:]),
-                             ("slice 7", slice7_path, KERNELS[:1])):
+                             ("slice 7", slice7_path, KERNELS[:1]),
+                             ("slice 8", lambda: _slice8_path(
+                                 dev, kernel, cli_sim.main), KERNELS[:2])):
         t_phase = time.perf_counter()
         reset_launches()
         path()
@@ -1287,6 +1508,8 @@ def main() -> int:
           f"{sum(ts['generator']) / 2:.4f} ms {ts['generator']}, "
           f"dual_diagonal (XOR of rolls) "
           f"{sum(ts['dual_diagonal']) / 2:.4f} ms {ts['dual_diagonal']}")
+
+    _slice8_times(dev)
 
     print(f"[5] wall {time.perf_counter() - t_phase:.2f} s")
 

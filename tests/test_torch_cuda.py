@@ -582,3 +582,51 @@ def test_layered_buckets_vs_plain_and_golden(cuda, family, rate, Z, ebn0,
                     ref.H, llr_np[:GOLDEN_ROWS], algo=algo, iters=25,
                     alpha=0.75, schedule="layered", dtype=np.float32,
                     early_stop=early_stop, **q))
+
+
+# ---- slice 8: hard-decision and windowed decoders (plain PyTorch on the
+# card) ----
+
+def test_hard_decoders_card_equals_cpu(cuda):
+    """bitflip and WBF on the judged code: the card's (bits, ok,
+    iters_used) equal the CPU's on the same AWGN and BSC LLRs (BSC: WBF's
+    energies tie, so argmax's first-index rule decides on both)."""
+    from tpu_ldpc_torch.channel.bsc import bsc_llrs_from_flips
+    from tpu_ldpc_torch.decode.hard import build_hard_decoder
+
+    _, code = codes("judged", "1/2", 64)
+    rng = np.random.default_rng(8)
+    c = torch.from_numpy(golden_encode(
+        code.H, rng.integers(0, 2, (128, code.k)).astype(np.uint8)))
+    bsc = bsc_llrs_from_flips(c, torch.from_numpy(rng.random(c.shape)
+                                                  < 0.002), 0.002)
+    for llr in (torch.from_numpy(noisy_llrs(code, 128, 4.0, seed=9)), bsc):
+        for algo in ("bitflip", "wbf"):
+            want = build_hard_decoder(code, algo, 50, device="cpu")(llr)
+            got = build_hard_decoder(code, algo, 50, device=cuda)(
+                llr.to(cuda))
+            assert_same(got, want)
+
+
+def test_windowed_card_equals_cpu(cuda):
+    """The windowed decoder on an SC chain (L=16, Z=16), sliding (W=6)
+    and full windows, both sweeps: min-sum and sumproduct-fast bit for
+    bit between the card and the CPU."""
+    from tpu_ldpc_torch.codes.base_graphs import make_sc_base_graph
+    from tpu_ldpc_torch.decode.windowed import build_windowed_decoder
+
+    code = LdpcCode.from_base_graph(make_sc_base_graph(16, 16), 16,
+                                    "sc_l16_z16")
+    rng = np.random.default_rng(10)  # the all-zero codeword at 1.8 dB
+    sigma2 = 1.0 / (2 * code.rate * 10 ** 0.18)
+    y = 1.0 + np.sqrt(sigma2) * rng.normal(size=(128, code.n))
+    llr = torch.from_numpy((2.0 / sigma2 * y).astype(np.float32))
+    for window in (6, code.mb):
+        for sweep in ("flooding", "layered"):
+            for algo in ("minsum", "sumproduct-fast"):
+                kw = dict(algo=algo, sweep=sweep)
+                want = build_windowed_decoder(code, window, 3, device="cpu",
+                                              **kw)(llr)
+                got = build_windowed_decoder(code, window, 3, device=cuda,
+                                             **kw)(llr.to(cuda))
+                assert_same(got, want)

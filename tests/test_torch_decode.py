@@ -20,7 +20,9 @@ from tpu_ldpc.codes import make_base_graph
 from tpu_ldpc.decode.reference import build_decoder as jnp_build_decoder
 from tpu_ldpc.golden import decode as golden_decode
 from tpu_ldpc.golden import encode as golden_encode
+from tpu_ldpc.golden.hard import decode_hard
 from tpu_ldpc_torch import LdpcCode
+from tpu_ldpc_torch.codes.base_graphs import make_sc_base_graph
 from tpu_ldpc_torch.codes_device import to_device
 from tpu_ldpc_torch.decode import decode
 from tpu_ldpc_torch.decode.cuda_bp import build_cuda_decoder
@@ -185,6 +187,25 @@ def test_decode_api_dispatches_by_device():
                  id="kw6-Queue 1 item 7"),
 ])
 def test_unported_decoder_modes_raise(kw, item):
+    if item == "Queue 1 item 7":
+        # ported since (they raised before the hard-decision and windowed
+        # decoders existed in the port): decode() runs them
+        if "algo" in kw:  # bitflip / wbf, against golden
+            code = toy_code()
+            llr = noisy_llrs(code, 16, 4.0, seed=15)
+            got = decode(code, llr, iters=20, device="cpu", **kw)
+            want = decode_hard(code.H, llr, algo=kw["algo"], iters=20)
+        else:  # windowed: a window of all rows is the plain decoder
+            code = LdpcCode.from_base_graph(make_sc_base_graph(8, 8), 8,
+                                            "sc_l8_z8")
+            rng = np.random.default_rng(15)  # the all-zero codeword
+            llr = (4.0 + 3.0 * rng.normal(size=(16, code.n))).astype(
+                np.float32)
+            got = decode(code, llr, iters=6, window=code.mb, device="cpu",
+                         **kw)
+            want = port(code, llr, iters=6, early_stop=False)
+        assert_same([x.numpy() for x in got], want)
+        return
     code = toy_code()
     with pytest.raises(NotImplementedError, match=item):
         decode(code, np.zeros((2, code.n), np.float32), device="cpu", **kw)

@@ -161,19 +161,38 @@ def test_unsupported_modes_raise(what):
                       max_frames=8, adapt=adapt, device="cpu")[0]
         assert res.frames == 8 and res.bits == 8 * code.k
         return
+    if what in ("wbf", "bitflip", "windowed"):
+        # ported since (they raised before the hard-decision and windowed
+        # decoders existed in the port): run_ber counts their frames
+        if what == "windowed":
+            code = CodeSpec(family="sc", L=8, Z=8).build()
+            cfg = DecodeCfg(iters=2, schedule="windowed", window=5)
+        else:
+            code, cfg = toy_code(), DecodeCfg(algo=what, iters=10)
+        res = run_ber(code, [6.0], cfg, batch=8, max_frames=16,
+                      device="cpu")[0]
+        assert res.frames == 16 and res.bits == 16 * res_k(code)
+        assert res.fer < 0.5
+        if what == "windowed":  # no early termination: every slide runs
+            assert res.iter_sum == 16 * 2 * (code.mb - 5 + 1)
+        else:
+            assert res.iter_sum <= 16 * 10
+        return
     if what in ("mesh", "profile"):
         flag = {"mesh": ["--mesh"], "profile": ["--profile", "p"]}[what]
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(["--family", "judged", "--device", "cpu", *flag])
         return
-    cfg = {
-        "wbf": DecodeCfg(algo="wbf"),
-        "bitflip": DecodeCfg(algo="bitflip"),
-        "windowed": DecodeCfg(schedule="windowed"),
-        "jnp": DecodeCfg(impl="jnp"),
-    }[what]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_ber(toy_code(), [2.0], cfg, batch=8, max_frames=8, device="cpu")
+        run_ber(toy_code(), [2.0], DecodeCfg(impl="jnp"), batch=8,
+                max_frames=8, device="cpu")
+
+
+def res_k(code):
+    """Info bits a frame: the true dimension (the pivot encoder's)."""
+    from tpu_ldpc_torch.encode.encoder import select_encoder
+
+    return select_encoder(code, device="cpu")[1]
 
 
 def test_sim_cli_end_to_end(tmp_path, capsys):
@@ -270,5 +289,8 @@ def test_config_hash_and_overrides():
     assert a.config_hash() == SimConfig.from_sources(
         None, ["run.device=cpu", "decode.alpha=0.8"]).config_hash()
     assert a.config_hash() != SimConfig().config_hash()
+    # decode.window exists since the windowed decoder was ported
+    assert SimConfig.from_sources(
+        None, ["decode.window=4"]).decode.window == 4
     with pytest.raises(ValueError, match="unknown config key"):
-        SimConfig.from_sources(None, ["decode.window=4"])
+        SimConfig.from_sources(None, ["decode.windows=4"])

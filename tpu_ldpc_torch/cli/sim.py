@@ -12,10 +12,17 @@
         --algo sumproduct-fast --find-fer 1e-2 --ebn0 1.5 2.5
     python -m tpu_ldpc_torch.cli.sim --family nr --rate 1/2 --z 64 \
         --crc crc24 --ebn0 1.6
+    python -m tpu_ldpc_torch.cli.sim --family sc --sc-length 32 --z 64 \
+        --schedule windowed --window 8 --window-sweep layered --iters 4 \
+        --ebn0 3.0
+    python -m tpu_ldpc_torch.cli.sim --family judged --algo wbf --ebn0 4.0
 
 ``--device`` defaults to cuda and raises without a card; ``--device cpu``
 runs the plain PyTorch path.  ``--algo`` minsum | sumproduct |
-sumproduct-fast, ``--schedule`` flooding | layered, ``--impl`` auto |
+sumproduct-fast | bitflip | wbf (the last two hard-decision),
+``--schedule`` flooding | layered | windowed (SC chains: ``--window``
+block-rows, ``--iters`` per slide, ``--window-sweep`` flooding |
+layered), ``--impl`` auto |
 torch | cuda | twophase (with ``--phase1-iters`` / ``--compact-budget``),
 fixed-point min-sum with ``--quant-bits`` / ``--quant-step`` /
 ``--quant-post-bits``.  ``--find-fer FER`` bisects for the Eb/N0 at that
@@ -24,8 +31,7 @@ FER between min and max of ``--ebn0`` instead of sweeping.
 systematic blocks punctured unless ``--puncture-blocks`` /
 ``--shorten-blocks`` name another adaptation); ``--crc`` attaches an
 outer CRC that gates the detected / undetected counters.
-``--algo bitflip | wbf``, ``--schedule windowed``, ``--mesh`` and
-``--profile`` are not ported yet and raise.
+``--mesh`` and ``--profile`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -59,6 +65,11 @@ def build_parser():
     p.add_argument("--alpha", type=float)
     p.add_argument("--beta", type=float)
     p.add_argument("--schedule", choices=["flooding", "layered", "windowed"])
+    p.add_argument("--window-sweep", choices=["flooding", "layered"],
+                   help="schedule inside the window for --schedule "
+                        "windowed")
+    p.add_argument("--window", type=int,
+                   help="window width in block-rows (schedule=windowed)")
     p.add_argument("--quant-bits", type=int,
                    help="fixed-point emulation: message width in bits "
                         "(min-sum only; golden's quantization contract)")
@@ -109,6 +120,8 @@ def args_to_config(args):
         "decode.algo": args.algo, "decode.iters": args.iters,
         "decode.alpha": args.alpha, "decode.beta": args.beta,
         "decode.schedule": args.schedule, "decode.impl": args.impl,
+        "decode.window": args.window,
+        "decode.window_sweep": args.window_sweep,
         "decode.quant_bits": args.quant_bits,
         "decode.quant_step": args.quant_step,
         "decode.quant_post_bits": args.quant_post_bits,
@@ -191,9 +204,11 @@ def main(argv=None):
         print(f"rate adaptation: punctured={len(adapt.puncture)} "
               f"shortened={len(adapt.shorten)} -> "
               f"(n_tx={n_tx}, k_eff={k_eff}, R_eff={k_eff / n_tx:.3f})")
+    window = (f" window={cfg.decode.window} sweep={cfg.decode.window_sweep}"
+              if cfg.decode.schedule == "windowed" else "")
     print(f"\ncode={code.name} (n={code.n}, k={code.k}, R={code.rate:.3f}) "
           f"algo={cfg.decode.algo} iters={cfg.decode.iters} "
-          f"schedule={cfg.decode.schedule} impl={cfg.decode.impl} "
+          f"schedule={cfg.decode.schedule}{window} impl={cfg.decode.impl} "
           f"device={cfg.run.device} "
           f"config={chash} wall={wall:.1f}s\n")
     print(waterfall_table(results))

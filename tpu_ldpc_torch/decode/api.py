@@ -3,8 +3,12 @@
 ``decode(code, llrs, algo=..., iters=..., schedule=...) -> (bits, ok,
 iters_used)``.  algo is 'minsum', 'sumproduct' or 'sumproduct-fast',
 schedule 'flooding' or 'layered'; ``quant_bits`` / ``quant_step`` /
-``quant_post_bits`` select fixed-point min-sum.  ``impl`` picks the
-implementation:
+``quant_post_bits`` select fixed-point min-sum.  algo 'bitflip' / 'wbf'
+runs the hard-decision decoders (``decode/hard.py``), and
+schedule='windowed' the windowed SC-LDPC decoder (``decode/windowed.py``,
+``window`` block-rows, ``iters`` per slide, ``window_sweep`` 'flooding'
+or 'layered'); both are plain PyTorch on any device and take no
+``impl``.  Otherwise ``impl`` picks the implementation:
 
 - ``'auto'``: ``build_cuda_decoder`` (decode/cuda_bp.py), in the code's
   own coordinates: the CUDA kernel for CUDA tensors, the plain PyTorch
@@ -17,8 +21,8 @@ implementation:
   resolve through ``decode/knobs.py``.
 
 Quantization with ``bitflip`` / ``wbf`` or the windowed schedule raises
-ValueError, as in the JAX package; those algos and that schedule
-themselves raise NotImplementedError naming their ROADMAP item.
+ValueError, as does ``window_sweep`` outside the windowed schedule, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -56,14 +60,38 @@ def build_decode_fn(code: LdpcCode, cfg, device):
             "quant_bits is not supported for hard-decision algos or the "
             "windowed schedule; it is only plumbed through the soft "
             "flooding/layered BP paths")
+    # window_sweep means something only inside the windowed schedule:
+    # reject it rather than run plain flooding labeled as layered
+    if (getattr(cfg, "window_sweep", "flooding") != "flooding"
+            and cfg.schedule != "windowed"):
+        raise ValueError("window_sweep applies only to schedule='windowed'")
     if cfg.algo in ("bitflip", "wbf"):
-        raise NotImplementedError(
-            f"algo={cfg.algo!r} is not ported yet (ROADMAP Queue 1 item 7)"
-        )
-    if cfg.schedule == "windowed":
-        raise NotImplementedError(
-            "schedule='windowed' is not ported yet (ROADMAP Queue 1 item 7)"
-        )
+        from tpu_ldpc_torch.decode.hard import build_hard_decoder
+
+        run = build_hard_decoder(code, cfg.algo, cfg.iters, device=device)
+    elif cfg.schedule == "windowed":
+        # cfg.iters counts iterations per window slide here
+        from tpu_ldpc_torch.decode.windowed import build_windowed_decoder
+
+        run = build_windowed_decoder(
+            code, window=cfg.window, iters_per_window=cfg.iters,
+            algo=cfg.algo, alpha=cfg.alpha, beta=cfg.beta,
+            sweep=getattr(cfg, "window_sweep", "flooding"), device=device)
+    else:
+        run = _build_bp(code, cfg, device, impl, quant)
+
+    def decode_fn(llr: torch.Tensor):
+        if llr.device.type != device.type:
+            raise ValueError(
+                f"llr is on {llr.device}, decoder was built for {device}"
+            )
+        return run(llr)
+
+    return decode_fn
+
+
+def _build_bp(code: LdpcCode, cfg, device, impl: str, quant: dict):
+    """The soft BP decoder of `cfg.impl` (flooding or layered)."""
     if impl in _NOT_PORTED_IMPL:
         raise NotImplementedError(
             f"impl={impl!r} is not available in the port: "
@@ -81,34 +109,24 @@ def build_decode_fn(code: LdpcCode, cfg, device):
         k, b, source = resolve_twophase_knobs(
             code, cfg.schedule, getattr(cfg, "phase1_iters", None),
             getattr(cfg, "compact_budget", None))
-        run = build_twophase_decoder(
+        return build_twophase_decoder(
             code, iters=cfg.iters, phase1_iters=k, budget=b,
             warn_on_fallback=source != "explicit", algo=cfg.algo,
             alpha=cfg.alpha, beta=cfg.beta, schedule=cfg.schedule,
             normalize=False, **quant)
-    elif impl == "torch":
+    if impl == "torch":
         from tpu_ldpc_torch.decode.reference import build_decoder
 
-        run = build_decoder(code, cfg.algo, cfg.iters, cfg.alpha, cfg.beta,
-                            cfg.schedule, True, **quant)
-    else:
-        # the code's own coordinates, unlike the JAX package's TPU path
-        # (build_pallas_decoder's default): the outputs are the same, and
-        # on the H100 shift normalization measured slower (PERF.md, K9)
-        from tpu_ldpc_torch.decode.cuda_bp import build_cuda_decoder
+        return build_decoder(code, cfg.algo, cfg.iters, cfg.alpha,
+                             cfg.beta, cfg.schedule, True, **quant)
+    # the code's own coordinates, unlike the JAX package's TPU path
+    # (build_pallas_decoder's default): the outputs are the same, and on
+    # the H100 shift normalization measured slower (PERF.md, K9)
+    from tpu_ldpc_torch.decode.cuda_bp import build_cuda_decoder
 
-        run = build_cuda_decoder(code, cfg.algo, cfg.iters, cfg.alpha,
-                                 cfg.beta, cfg.schedule, True,
-                                 normalize=False, **quant)
-
-    def decode_fn(llr: torch.Tensor):
-        if llr.device.type != device.type:
-            raise ValueError(
-                f"llr is on {llr.device}, decoder was built for {device}"
-            )
-        return run(llr)
-
-    return decode_fn
+    return build_cuda_decoder(code, cfg.algo, cfg.iters, cfg.alpha,
+                              cfg.beta, cfg.schedule, True, normalize=False,
+                              **quant)
 
 
 def decode(
@@ -125,6 +143,8 @@ def decode(
     quant_post_bits: int | None = None,
     phase1_iters: int | None = None,
     compact_budget: int | None = None,
+    window: int = 8,
+    window_sweep: str = "flooding",
     device=None,
 ):
     """Decode (batch, n) LLRs.
@@ -143,5 +163,6 @@ def decode(
     cfg = DecodeCfg(algo=algo, iters=iters, alpha=alpha, beta=beta,
                     schedule=schedule, impl=impl, quant_bits=quant_bits,
                     quant_step=quant_step, quant_post_bits=quant_post_bits,
-                    phase1_iters=phase1_iters, compact_budget=compact_budget)
+                    phase1_iters=phase1_iters, compact_budget=compact_budget,
+                    window=window, window_sweep=window_sweep)
     return build_decode_fn(code, cfg, device)(llrs)

@@ -51,8 +51,15 @@ class DecodeCfg:
     iters: int = 50
     alpha: float = 0.75
     beta: float = 0.0
-    schedule: str = "flooding"  # 'flooding' | 'layered'
+    schedule: str = "flooding"  # 'flooding' | 'layered' | 'windowed'
     impl: str = "auto"          # 'auto' | 'torch' | 'cuda' | 'twophase'
+    # schedule='windowed' only (SC-LDPC chains, decode/windowed.py):
+    # window width in block-rows; iters then counts iterations PER
+    # WINDOW SLIDE, not in all.  window_sweep picks the schedule inside
+    # the window ('flooding' | 'layered': the layered sweep rides the
+    # slide direction and needs fewer iterations per position)
+    window: int = 8
+    window_sweep: str = "flooding"
     # fixed-point emulation mode (min-sum only): message width in bits,
     # LSB step (a power of two) and APP width (None: quant_bits + 2)
     quant_bits: int | None = None
