@@ -24,8 +24,13 @@ float32 K1, no spill in any judged-code instantiation; slice 7: the
 rate-compatible path (K1 and K2 on the punctured NR-like mothers, the
 dual-diagonal encoder on every registry cell, run_ber against the NR
 rows and both arms of the frozen CRC run, IR-HARQ against its plain run
-and the JAX run's stages, the CLI with --family nr --crc) -- times
-kernels and plain versions with CUDA events, and prints:
+and the JAX run's stages, the CLI with --family nr --crc); slice 8: the
+hard-decision and windowed decoders against their CPU runs; slice 9:
+code construction and analysis (the trapping-set census of the
+punctured NR mother on K1 against its frozen TPU-run row, the impulse
+d_min probe on K3, the construction CLI with the g++-built native helper,
+a family cell without a committed table) -- times kernels and plain
+versions with CUDA events, and prints:
 
   - one line per phase;
   - the card's name and power limit (nvidia-smi);
@@ -128,6 +133,23 @@ HARD_CPU_ROWS = 1024
 SC_BATCH = 1024
 WINDOWED_EBN0, WINDOWED_FRAMES = 2.5, 16384
 WINDOWED_ROWS = {"flooding": 1050, "layered": 402}
+# slice 9: the trapping-set census at the first point of
+# scripts/trapping_census.py (nr2_r15_z64, first 2Z erased, flooding
+# min-sum 50 it, alpha 0.75, chunks of 2048 paired-seed frames, until 150
+# info-wrong failures or 2^19 frames), held by Wilson interval against
+# that point of artifacts/nr2_trapping_census.json (a decoding result);
+# the impulse d_min probe on the judged code (4 gammas, 512 pairs, 60 it
+# exact sum-product: 5120 frames) and on tests/test_dmin.py's toy code,
+# whose d_min is 4; the construction CLI and one family cell without a
+# committed table
+CENSUS_JSON = os.path.join(REPO, "artifacts", "nr2_trapping_census.json")
+CENSUS_EBN0, CENSUS_TARGET, CENSUS_MAX_FRAMES = 1.2, 150, 1 << 19
+CENSUS_KW = dict(iters=50, alpha=0.75, chunk=2048)
+TOY_DMIN = 4
+CODEGEN_ARGV = ["--family", "custom", "--mb", "4", "--nb", "8", "--z", "16",
+                "--pexit", "15", "--anneal", "200", "--ace", "--threshold",
+                "--dmin", "20"]
+NEW_CELL = ("wimax", "3/4", 32)
 # the least time the card could take: device memory 3.35 TB/s, FP32
 # outside the tensor cores 67 TFLOP/s (H100 SXM datasheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -613,6 +635,266 @@ def _slice8_times(dev):
     print(f"[5 slice8] wall {time.perf_counter() - t0:.2f} s")
 
 
+def _census_code():
+    """(nr2_r15_z64, the census's harvest_failures keywords)."""
+    from tpu_ldpc_torch.codes.nrlike import nrlike_code
+
+    code = nrlike_code("1/5", 64, bg=2)
+    return code, dict(CENSUS_KW, n_punct=2 * code.Z)
+
+
+def _recording(fn, out):
+    """fn, its last input and output kept in out['llr'] and out['out']."""
+    def dec(llr):
+        out["llr"], out["out"] = llr, fn(llr)
+        return out["out"]
+    return dec
+
+
+def _slice9_kernels(dev, kernel, plain):
+    """Phase 3 for slice 9: K1 on the census's first chunk and K3 on the
+    judged code's impulse probes against their plain versions on the
+    card, through the entry points' decoder hooks.  kernel / plain:
+    main()'s builders.  Returns (K1 max |diff|, K3 max |diff|, K3 frame
+    agreement, the K1 run's chunk-0 failures, the K3 probe run)."""
+    import dataclasses
+
+    import torch
+
+    from tpu_ldpc_torch import LdpcCode
+    from tpu_ldpc_torch.codes.dmin import estimate_dmin_impulse
+    from tpu_ldpc_torch.codes.trapping import harvest_failures
+
+    code, kw = _census_code()
+    runs, fails = {}, {}
+    for label, build in (("kernel", kernel), ("plain", plain)):
+        dec = _recording(build("minsum_flood", code, 50, True),
+                         runs.setdefault(label, {}))
+        fails[label], _ = harvest_failures(
+            code, CENSUS_EBN0, target=10**9, max_frames=kw["chunk"],
+            decode=lambda llr, dec=dec: dec(torch.from_numpy(llr).to(dev)),
+            **kw)
+    err_k1, _ = _diff(runs["kernel"]["out"], runs["plain"]["out"])
+    same = ([dataclasses.astuple(f) for f in fails["kernel"]]
+            == [dataclasses.astuple(f) for f in fails["plain"]])
+    what = (f"minsum_flood {code.name} census chunk 0 ({CENSUS_EBN0} dB, "
+            f"2Z erased, b={kw['chunk']}, 50 it ET on)")
+    if err_k1 or not same:
+        raise AssertionError(f"{what}: kernel != plain (max |diff| {err_k1},"
+                             f" failures equal: {same})")
+    print(f"[3 slice9] {what}: bit-exact; {len(fails['kernel'])} failures, "
+          "equal to the plain version's field for field")
+
+    judged = LdpcCode.judged()
+    probes = {}
+    for label, build in (("kernel", kernel), ("plain", plain)):
+        rec = probes.setdefault(label, {})
+        rec["ub"], rec["stats"] = estimate_dmin_impulse(
+            judged, decoder=_recording(
+                build("sumproduct_flood", judged, 60, True), rec),
+            device=dev)
+    err_k3, share = _diff(probes["kernel"]["out"], probes["plain"]["out"])
+    st, pst = probes["kernel"]["stats"], probes["plain"]["stats"]
+    what = (f"sumproduct_flood judged impulse probes b={st['probes']} 60 it "
+            f"ET on: weight_min {st['weight_min']} (plain "
+            f"{pst['weight_min']}), converged_nonzero "
+            f"{st['converged_nonzero']} (plain {pst['converged_nonzero']})")
+    if (share < SP_MIN_AGREEMENT
+            or (st["weight_min"], st["converged_nonzero"])
+            != (pst["weight_min"], pst["converged_nonzero"])):
+        raise AssertionError(f"{what}: frames agree {share:.6f}")
+    print(f"[3 slice9] {what}; kernel and plain agree on {share:.6f} of "
+          "frames (bits, ok, iters_used)")
+    return err_k1, err_k3, share, fails["kernel"], probes["kernel"]
+
+
+def _slice9_path(dev, chunk0, probe):
+    """The slice-9 main path through its entry points, each on its
+    default decoder on the card: the census (K1), the impulse probe on the
+    judged and the toy code (K3), the construction CLI in a subprocess
+    (the native helper built with g++) and generate_family_cell."""
+    import dataclasses
+
+    from tpu_ldpc_torch import LdpcCode, _native
+    from tpu_ldpc_torch.codes import base_graphs
+    from tpu_ldpc_torch.codes.dmin import estimate_dmin_impulse
+    from tpu_ldpc_torch.codes.trapping import census, harvest_failures
+
+    code, kw = _census_code()
+    with open(CENSUS_JSON) as f:
+        frozen = next(p for p in json.load(f)["points"]
+                      if p["ebn0_db"] == CENSUS_EBN0)
+    t0 = time.perf_counter()
+    fails, frames = harvest_failures(
+        code, CENSUS_EBN0, target=CENSUS_TARGET, max_frames=CENSUS_MAX_FRAMES,
+        target_info_wrong=True, device=dev, **kw)
+    wall = time.perf_counter() - t0
+    info = [f for f in fails if f.info_wrong > 0]
+    rep = census(info)
+    top = [(c["a"], c["b"], c["count"]) for c in rep["classes"][:5]]
+    ftop = [(c["a"], c["b"], c["count"])
+            for c in frozen["census_info_wrong"]["classes"][:5]]
+    if ([dataclasses.astuple(f) for f in fails if f.chunk == 0]
+            != [dataclasses.astuple(f) for f in chunk0]):
+        raise AssertionError("census chunk 0 differs from phase 3's K1 run")
+    exact = {
+        "frames": frames == frozen["frames"],
+        "failed_frames": len(fails) == frozen["n_failed_frames"],
+        "info_wrong": len(info) == frozen["census_info_wrong"]["n_failures"],
+        "top5": top == ftop}
+    print(f"[4 census] {code.name} {CENSUS_EBN0} dB, 2Z erased, K1 50 it "
+          f"ET on, chunk {kw['chunk']}: frames={frames} failed frames="
+          f"{len(fails)} info-wrong={len(info)} undetected="
+          f"{rep['undetected']['count']} top (a, b, count) {top}; frozen "
+          f"row: frames={frozen['frames']} failed frames="
+          f"{frozen['n_failed_frames']} info-wrong="
+          f"{frozen['census_info_wrong']['n_failures']} top {ftop}; exactly "
+          f"equal: {exact}; wall {wall:.2f} s "
+          f"({frames // kw['chunk']} chunks)")
+    for label, got, want in (
+            ("fer_info", len(info), frozen["census_info_wrong"]["n_failures"]),
+            ("detected_rate", len(fails), frozen["n_failed_frames"])):
+        lo, hi = _wilson_interval(got, frames)
+        rlo, rhi = _wilson_interval(want, frozen["frames"])
+        print(f"[4 census] {label} {got / frames:.4e} CI95=[{lo:.4e}, "
+              f"{hi:.4e}], frozen {want / frozen['frames']:.4e} "
+              f"[{rlo:.4e}, {rhi:.4e}]")
+        if not (lo <= rhi and rlo <= hi):
+            raise AssertionError(f"census {label}: [{lo:.4e}, {hi:.4e}] "
+                                 f"misses [{rlo:.4e}, {rhi:.4e}]")
+
+    t0 = time.perf_counter()
+    ub, st = estimate_dmin_impulse(LdpcCode.judged())
+    wall = time.perf_counter() - t0
+    if st != probe["stats"]:
+        raise AssertionError(f"judged probe {st} != phase 3's "
+                             f"{probe['stats']}")
+    print(f"[4 dmin] judged impulse probe (K3, {st['probes']} frames): "
+          f"ub={ub} converged_nonzero={st['converged_nonzero']}, wall "
+          f"{wall:.2f} s")
+    toy = LdpcCode.from_base_graph(
+        base_graphs.make_base_graph(4, 6, 4, seed=5), 4)
+    ub, st = estimate_dmin_impulse(toy)
+    if ub != TOY_DMIN:
+        raise AssertionError(f"toy impulse probe: ub {ub} != {TOY_DMIN}")
+    print(f"[4 dmin] toy n={toy.n} impulse probe (K3, {st['probes']} "
+          f"frames): ub={ub} (exact d_min {TOY_DMIN}), converged_nonzero="
+          f"{st['converged_nonzero']}")
+
+    t0 = time.perf_counter()
+    so = _native.lib()
+    print(f"[4 native] _native/native.cpp built with g++ and loaded in "
+          f"{time.perf_counter() - t0:.2f} s: {so._name}")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "tpu_ldpc_torch.cli.codegen", *CODEGEN_ARGV],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    wall = time.perf_counter() - t0
+    for line in out.stdout.strip().splitlines():
+        print(f"[4 codegen] {line}")
+    if out.returncode != 0 or not all(
+            key in out.stdout for key in ("pexit search: threshold",
+                                          "annealed:", "PEXIT BP-threshold",
+                                          "girth>=", "d_min <=")):
+        raise AssertionError(f"codegen CLI rc={out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    print(f"[4 codegen] {' '.join(CODEGEN_ARGV)}: wall {wall:.2f} s")
+    family, rate, Z = NEW_CELL
+    if Z in base_graphs.FAMILY_LIFTS[family]:
+        raise AssertionError(f"{NEW_CELL} is a committed cell")
+    t0 = time.perf_counter()
+    B = base_graphs.generate_family_cell(
+        family, rate, Z, base_graphs.family_cell_seed(family, rate, Z))
+    wall = time.perf_counter() - t0
+    cell = LdpcCode.from_base_graph(B, Z, "new_cell")
+    cell.parity_M  # raises unless the parity part is invertible
+    print(f"[4 codegen] generate_family_cell{NEW_CELL}: n={cell.n} "
+          f"k={cell.k} 4-cycles={base_graphs.count_4cycles(B, Z)} "
+          f"6-cycles={base_graphs.count_6cycles(B, Z)} girth>="
+          f"{cell.girth_lower_bound()}, encodable; wall {wall:.2f} s")
+
+
+def _slice9_times(dev, probe, smi):
+    """ms per census chunk: K1 (CUDA events) and the host's share (NumPy
+    draws and encode, the copies to and from the card, classify; host
+    clock); the probe's K3 ms; each beside the card's name and limit."""
+    import torch
+
+    import numpy as np
+
+    from tpu_ldpc_torch import LdpcCode
+    from tpu_ldpc_torch.codes.gf2 import encode, parity_map
+    from tpu_ldpc_torch.codes.trapping import chunk_frames, classify
+    from tpu_ldpc_torch.decode.cuda_bp import build_cuda_decoder
+
+    t_phase = time.perf_counter()
+    code, kw = _census_code()
+    chunk = kw["chunk"]
+    dec = build_cuda_decoder(code, "minsum", kw["iters"], kw["alpha"],
+                             early_stop=True, normalize=False)
+    M = parity_map(code.H)
+    host = {"draws+encode": [], "to card": [], "to host": [],
+            "classify": []}
+    for ci in range(4):  # chunk 0 warms up
+        t0 = time.perf_counter()
+        c, llr = chunk_frames(code, M, code.name, CENSUS_EBN0, ci, chunk,
+                              kw["n_punct"])
+        t1 = time.perf_counter()
+        llr_dev = torch.from_numpy(llr).to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = dec(llr_dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        bits = out[0].cpu().numpy()
+        t4 = time.perf_counter()
+        classify(code.H, c, bits, code.k, chunk=ci)
+        t5 = time.perf_counter()
+        if ci:
+            for key, dt in zip(host, (t1 - t0, t2 - t1, t4 - t3, t5 - t4)):
+                host[key].append(1e3 * dt)
+    k1_ms = [_cuda_time_ms(lambda: dec(llr_dev), 10) for _ in range(2)]
+    k1 = sum(k1_ms) / 2
+    iters_on = float(out[2].double().sum())
+    bound, by = _bound_ms(code, chunk, "minsum", iters_on)
+    print(f"[5 slice9] census chunk {code.name} b={chunk} {CENSUS_EBN0} dB "
+          f"2Z erased, K1 50 it ET on (mean iters {iters_on / chunk:.3f}): "
+          f"{k1:.4f} ms ({k1_ms[0]:.4f}, {k1_ms[1]:.4f}); bound "
+          f"{bound:.5f} ms ({by}); {smi}")
+    host_ms = sum(sum(v) / len(v) for v in host.values())
+    print(f"[5 slice9] census chunk host: {host_ms:.4f} ms = "
+          + ", ".join(f"{k} {sum(v) / len(v):.4f}" for k, v in host.items())
+          + f" ms (host clock, mean of chunks 1-3); host / K1 "
+          f"{host_ms / k1:.1f}x; {smi}")
+    u = np.random.default_rng(SEED).integers(0, 2, (chunk, code.k)).astype(
+        np.uint8)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        encode(code.H, u, M)
+    enc_ms = (time.perf_counter() - t0) / 3 * 1e3
+    draws_ms = sum(host["draws+encode"]) / 3
+    print(f"[5 slice9] of draws+encode: encode (float32 BLAS product) "
+          f"{enc_ms:.4f} ms, so the draws and LLRs {draws_ms - enc_ms:.4f} "
+          f"ms (host clock); {smi}")
+
+    judged = LdpcCode.judged()
+    sp = build_cuda_decoder(judged, "sumproduct", 60, early_stop=True,
+                            normalize=False)
+    llr = probe["llr"]
+    out = sp(llr)
+    torch.cuda.synchronize()
+    k3_ms = [_cuda_time_ms(lambda: sp(llr), 5) for _ in range(2)]
+    k3 = sum(k3_ms) / 2
+    iters_on = float(out[2].double().sum())
+    bound, by = _bound_ms(judged, llr.shape[0], "sumproduct", iters_on)
+    print(f"[5 slice9] impulse probe judged b={llr.shape[0]} K3 60 it ET on "
+          f"(mean iters {iters_on / llr.shape[0]:.3f}): {k3:.4f} ms "
+          f"({k3_ms[0]:.4f}, {k3_ms[1]:.4f}); bound {bound:.5f} ms ({by}); "
+          f"{smi}")
+    print(f"[5 slice9] wall {time.perf_counter() - t_phase:.2f} s")
+
+
 def main() -> int:
     import torch
 
@@ -954,6 +1236,13 @@ def main() -> int:
                 print(f"[3 nr] {what}: bit-exact, "
                       f"ok={float(got[1].float().mean()):.4f} "
                       f"mean_iters={float(got[2].double().mean()):.3f}")
+    # slice 9: K1 on the census's first chunk, K3 on the impulse probes
+    err_k1, err_k3, share, chunk0, probe = _slice9_kernels(dev, kernel,
+                                                           plain)
+    max_abs_err["minsum_flood"] = max(max_abs_err["minsum_flood"], err_k1)
+    max_abs_err["sumproduct_flood"] = max(max_abs_err["sumproduct_flood"],
+                                          err_k3)
+    agreement["sumproduct_flood"] = min(agreement["sumproduct_flood"], share)
     print(f"[3] wall {time.perf_counter() - t_phase:.2f} s")
 
     # ---- 4. main paths (counts set to 0 before each, read after) ----------
@@ -1314,7 +1603,10 @@ def main() -> int:
                              ("slice 4", slice4_path, KERNELS[8:]),
                              ("slice 7", slice7_path, KERNELS[:1]),
                              ("slice 8", lambda: _slice8_path(
-                                 dev, kernel, cli_sim.main), KERNELS[:2])):
+                                 dev, kernel, cli_sim.main), KERNELS[:2]),
+                             ("slice 9", lambda: _slice9_path(
+                                 dev, chunk0, probe),
+                              (KERNELS[0], KERNELS[2]))):
         t_phase = time.perf_counter()
         reset_launches()
         path()
@@ -1510,6 +1802,7 @@ def main() -> int:
           f"{sum(ts['dual_diagonal']) / 2:.4f} ms {ts['dual_diagonal']}")
 
     _slice8_times(dev)
+    _slice9_times(dev, probe, smi)
 
     print(f"[5] wall {time.perf_counter() - t_phase:.2f} s")
 

@@ -14,6 +14,8 @@ on a machine with the card it runs without the JAX conftest:
         tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -630,3 +632,43 @@ def test_windowed_card_equals_cpu(cuda):
                 got = build_windowed_decoder(code, window, 3, device=cuda,
                                              **kw)(llr.to(cuda))
                 assert_same(got, want)
+
+
+def test_trapping_harvest_on_card_equals_golden(cuda):
+    """harvest_failures with its default decoder (K1 on the card) finds,
+    failure for failure, what golden float32 min-sum on the CPU finds in
+    the first chunk of the punctured NR mother (nr2_r15_z64, 1.2 dB, 2Z
+    erased, 50 it, the paired-seed draws of the JAX package's census,
+    which tests/test_torch_trapping.py holds equal on the CPU)."""
+    from tpu_ldpc.codes.nrlike import nrlike_code
+    from tpu_ldpc_torch.codes.trapping import harvest_failures
+
+    ref = nrlike_code("1/5", 64, bg=2)
+    code = LdpcCode.from_base_graph(np.asarray(ref.B), ref.Z, ref.name)
+    kw = dict(iters=50, alpha=0.75, target=10**9, max_frames=256, chunk=256,
+              n_punct=2 * code.Z)
+
+    def golden(llr):
+        return golden_decode(ref.H, llr, iters=50, alpha=0.75,
+                             dtype=np.float32)
+
+    LAUNCHES["minsum_flood"] = 0
+    got, frames = harvest_failures(code, 1.2, **kw)
+    assert LAUNCHES["minsum_flood"] == 1 and frames == 256
+    want, _ = harvest_failures(code, 1.2, decode=golden, **kw)
+    assert [dataclasses.astuple(f) for f in got] == [
+        dataclasses.astuple(f) for f in want]
+    assert len(got) > 0
+
+
+def test_impulse_probe_on_card_finds_toy_dmin(cuda):
+    """estimate_dmin_impulse with its default decoder (exact sum-product,
+    K3, on the card) finds tests/test_dmin.py's toy code's d_min 4."""
+    from tpu_ldpc_torch.codes import make_base_graph
+    from tpu_ldpc_torch.codes.dmin import estimate_dmin_impulse
+
+    code = LdpcCode.from_base_graph(make_base_graph(4, 6, 4, seed=5), 4)
+    LAUNCHES["sumproduct_flood"] = 0
+    ub, st = estimate_dmin_impulse(code)
+    assert LAUNCHES["sumproduct_flood"] == 1
+    assert ub == 4 and st["converged_nonzero"] > 0

@@ -28,7 +28,11 @@ PORT_MODULES = (
     "tpu_ldpc_torch.sim.state", "tpu_ldpc_torch.sim.search",
     "tpu_ldpc_torch.cli.config",
     "tpu_ldpc_torch.cli.sim", "tpu_ldpc_torch.cli.profile_mc",
-    "tpu_ldpc_torch._build",
+    "tpu_ldpc_torch._build", "tpu_ldpc_torch._native",
+    "tpu_ldpc_torch.codes.anneal", "tpu_ldpc_torch.codes.peg",
+    "tpu_ldpc_torch.codes.pexit", "tpu_ldpc_torch.codes.dmin",
+    "tpu_ldpc_torch.codes.trapping", "tpu_ldpc_torch.cli.codegen",
+    "tpu_ldpc_torch.report.plots",
 )
 
 

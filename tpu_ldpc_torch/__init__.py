@@ -16,9 +16,15 @@ bf16 message storage and the compressed row state.  Slices 5-6
 redesigned the flooding and layered kernel bodies for the H100.  Slice 7
 adds the rate-compatible transmission path: the dual-diagonal encoder,
 the NR-like BG1/BG2 families, puncturing and shortening, the BSC, an
-outer CRC that gates the counters, and IR-HARQ:
+outer CRC that gates the counters, and IR-HARQ.  Slice 8 adds the
+hard-decision and windowed decoders; slice 9 code construction and
+analysis (annealing, PEG, PEXIT, d_min bounds, the trapping-set census,
+the construction CLI):
 
-- ``codes``: LdpcCode, the registry, the Tanner layout, GF(2) algebra;
+- ``codes``: LdpcCode, the registry, the Tanner layout, GF(2) algebra,
+  construction and analysis (host NumPy);
+- ``_native``: the host helper for construction (cycle counters,
+  bit-packed GF(2)), C++ built with g++ at first use;
 - ``codes_device.to_device``: the code's tables as tensors on a device;
 - ``channel`` (AWGN, ``RateAdapt``, BSC), ``encode``, ``codes.crc``:
   plain PyTorch;
@@ -32,7 +38,10 @@ outer CRC that gates the counters, and IR-HARQ:
   ``harq.run_irharq``), ``cli``, ``report``: the public entry points.
 
 Every function takes an explicit ``device`` (or follows its input
-tensor's device) and every random draw an explicit ``torch.Generator``.
+tensor's device) and every random draw on the device an explicit
+``torch.Generator``; construction and the census draw on the host with
+NumPy's ``default_rng``, as the JAX package does, so their results
+match it.
 """
 
 __version__ = "0.7.0"

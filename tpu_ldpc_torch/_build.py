@@ -1,4 +1,5 @@
-"""Build the CUDA kernels at first use and load them with ctypes.
+"""Build the CUDA kernels and the host helper at first use and load them
+with ctypes.
 
 Each ``csrc/<name>.cu`` is one shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds).  The first
@@ -13,6 +14,17 @@ repository root, named by a hash of its source, the shared headers
 (``csrc/*.cuh``) and the flags, so a change rebuilds; nvcc's output (the
 ptxas report) beside it in ``<lib>.log``.  A failed build raises with
 nvcc's output; there is no fallback.
+
+The host helper (``_native/native.cpp``: cycle counters and bit-packed
+GF(2) algebra for code construction) takes the host-compiler route,
+``build_host_library``:
+
+    g++ -O3 -shared -fPIC -std=c++17 -o <lib> _native/native.cpp
+
+into the same directory, named ``lib<stem>_<hash>.so`` by a hash of the
+source and the flags.  Several processes may build it at once (pytest
+workers): each writes its own temporary name and renames it into place.
+A failed build raises with g++'s output; there is no fallback.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -188,3 +201,48 @@ def check(lib, err: int, what: str) -> None:
     if err != 0:
         msg = lib.ldpc_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def _find_gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(
+            "g++ not found on PATH: the host helper of tpu_ldpc_torch "
+            "(_native/native.cpp) cannot be built")
+    return gxx
+
+
+def host_library_path(src: str, out_dir: str = BUILD_DIR) -> str:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    with open(src, "rb") as f:
+        h.update(f.read())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(out_dir, f"lib{stem}_{h.hexdigest()[:16]}.so")
+
+
+def build_host_library(src: str, out_dir: str = BUILD_DIR) -> str:
+    """Path of the g++-built shared library of the C++ source `src`,
+    building it first when it is missing."""
+    out = host_library_path(src, out_dir)
+    if os.path.exists(out):
+        return out
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{out}.tmp{os.getpid()}"
+    cmd = [_find_gxx(), *GXX_FLAGS, "-o", tmp, src]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(f"g++ failed (rc={proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_host_library(src: str) -> ctypes.CDLL:
+    """The ctypes library of the C++ source `src` (built at first use)."""
+    with _lock:
+        if src not in _libs:
+            _libs[src] = ctypes.CDLL(build_host_library(src))
+        return _libs[src]

@@ -1,12 +1,16 @@
 """Code construction: base graphs, QC lifting, layout compiler, GF(2)
-algebra, code-file I/O, the NR-like rate-compatible family and the outer
-CRC (NumPy / SciPy; the port's own copies of the
-JAX package's framework-free modules, with the same names)."""
+algebra, code-file I/O, the NR-like rate-compatible family, the outer
+CRC, and construction / analysis tools (annealing, PEG, PEXIT, d_min,
+trapping-set census) -- NumPy / SciPy and the native host helper; the
+port's own copies of the JAX package's framework-free modules, with the
+same names."""
 
 from tpu_ldpc_torch.codes.base_graphs import (  # noqa: F401
     FAMILY_LIFTS,
+    ace8_cost,
     count_4cycles,
     count_6cycles,
+    count_8cycles,
     count_8cycles_raw,
     family_base_graph,
     girth_lower_bound,

@@ -1,11 +1,14 @@
-"""QC-LDPC base graphs: the registry and girth-aware shift selection (the
-port's copy of what building a code needs from
+"""QC-LDPC base graphs: the registry, cycle analysis, girth-aware shift
+selection and family-cell construction (the port's copy of
 ``tpu_ldpc/codes/base_graphs.py``).
 
 The 24 wifi / wimax family cells are read from the port's copies of the
-committed shift tables (``codes/data/*.qc``).  The annealer that
-generated them (``tpu_ldpc/codes/anneal.py``) and the PEXIT profiles are
-not ported (ROADMAP Queue 1 item 10); a cell without a table raises.
+committed shift tables (``codes/data/*.qc``); a cell without a table is
+generated (``generate_family_cell``: girth-aware shifts, then the
+annealer of ``codes/anneal.py``, optionally on a PEXIT-optimized mask of
+``codes/data/profiles.json``).  The public cycle counters run on the
+native host helper (``tpu_ldpc_torch/_native``); the pure-Python
+``_*_py`` versions are the plain versions the tests hold it against.
 
 Base-matrix convention: B[i, j] == -1 means the (Z x Z) zero block;
 B[i, j] == s in [0, Z) means the circulant P^s with P^s[r, c] = 1 iff
@@ -38,6 +41,12 @@ def _entries(B: np.ndarray):
 
 def count_4cycles(B: np.ndarray, Z: int) -> int:
     """Number of (row-pair, col-pair) 4-cycle patterns with shift sum 0."""
+    from tpu_ldpc_torch import _native
+
+    return _native.count_4cycles(np.asarray(B), Z)
+
+
+def _count_4cycles_py(B: np.ndarray, Z: int) -> int:
     mb, nb = B.shape
     count = 0
     for i1 in range(mb):
@@ -54,6 +63,12 @@ def count_4cycles(B: np.ndarray, Z: int) -> int:
 
 def count_6cycles(B: np.ndarray, Z: int) -> int:
     """Number of base-graph 6-cycle patterns with zero alternating shift sum."""
+    from tpu_ldpc_torch import _native
+
+    return _native.count_6cycles(np.asarray(B), Z)
+
+
+def _count_6cycles_py(B: np.ndarray, Z: int) -> int:
     mb, nb = B.shape
     by_row, _ = _entries(B)
     # enumerate cycles as (i1,j1)-(i1,j2)-(i2,j2)-(i2,j3)-(i3,j3)-(i3,j1)
@@ -84,6 +99,50 @@ def count_6cycles(B: np.ndarray, Z: int) -> int:
                             if s == 0:
                                 raw += 1
     return raw // 2
+
+
+def ace6_cost(B: np.ndarray, Z: int) -> float:
+    """ACE-weighted 6-cycle cost: cycles through low-degree variable
+    nodes (low ACE) count ~1, cycles through high-degree nodes are
+    nearly free (weight 2^-(sum col degrees - 6) per cycle)."""
+    from tpu_ldpc_torch import _native
+
+    return _native.ace6_cost(np.asarray(B), Z)
+
+
+def _ace6_cost_py(B: np.ndarray, Z: int) -> float:
+    mb, nb = B.shape
+    by_row, _ = _entries(B)
+    colw = (np.asarray(B) >= 0).sum(axis=0)
+    raw = 0.0
+    for i1 in range(mb):
+        for j1 in by_row[i1]:
+            for j2 in by_row[i1]:
+                if j2 == j1:
+                    continue
+                for i2 in range(mb):
+                    if i2 <= i1 or B[i2, j2] < 0:
+                        continue
+                    for j3 in by_row[i2]:
+                        if j3 == j1 or j3 == j2:
+                            continue
+                        for i3 in range(i1 + 1, mb):
+                            if i3 == i2:
+                                continue
+                            if B[i3, j3] < 0 or B[i3, j1] < 0:
+                                continue
+                            s = (
+                                B[i1, j1] - B[i1, j2]
+                                + B[i2, j2] - B[i2, j3]
+                                + B[i3, j3] - B[i3, j1]
+                            ) % Z
+                            if s == 0:
+                                ace = min(
+                                    int(colw[j1] + colw[j2] + colw[j3]) - 6,
+                                    40,
+                                )
+                                raw += 2.0 ** (-ace)
+    return raw / 2.0
 
 
 def _iter_8walks(B: np.ndarray, Z: int):
@@ -135,8 +194,43 @@ def _iter_8walks(B: np.ndarray, Z: int):
 
 
 def count_8cycles_raw(B: np.ndarray, Z: int) -> int:
-    """Raw accepted-tuple count: #lifted 8-cycles == Z * raw / 8."""
+    """Raw accepted-tuple count: #lifted 8-cycles == Z * raw / 8 exactly.
+    Use for existence checks; count_8cycles divides by 8 for the
+    per-base-pattern count."""
+    from tpu_ldpc_torch import _native
+
+    return _native.count_8cycles_raw(np.asarray(B), Z)
+
+
+def _count_8cycles_raw_py(B: np.ndarray, Z: int) -> int:
     return sum(1 for _ in _iter_8walks(np.asarray(B), Z))
+
+
+def count_8cycles(B: np.ndarray, Z: int) -> int:
+    """Number of base-graph 8-cycle patterns (simple 8-cycles in the
+    lifted Tanner graph per base pattern == lifted count / Z, like the
+    4-/6-cycle counters; floors the half-pattern contributed by a
+    doubly-wrapped 4-cycle, so use count_8cycles_raw for existence)."""
+    return count_8cycles_raw(B, Z) // 8
+
+
+def ace8_cost(B: np.ndarray, Z: int) -> float:
+    """ACE-weighted 8-cycle cost (see ace6_cost): each 8-cycle weighs
+    2^-(sum of its 4 visited column degrees - 8); a repeated base column
+    is visited by two distinct lifted nodes and contributes twice."""
+    from tpu_ldpc_torch import _native
+
+    return _native.ace8_cost(np.asarray(B), Z)
+
+
+def _ace8_cost_py(B: np.ndarray, Z: int) -> float:
+    B = np.asarray(B)
+    colw = (B >= 0).sum(axis=0)
+    raw = 0.0
+    for c1, c2, c3, c4 in _iter_8walks(B, Z):
+        ace = min(int(colw[c1] + colw[c2] + colw[c3] + colw[c4]) - 8, 40)
+        raw += 2.0 ** (-ace)
+    return raw / 8.0
 
 
 def girth_lower_bound(B: np.ndarray, Z: int) -> int:
@@ -321,6 +415,30 @@ def make_base_graph(
     return select_shifts(mask, Z, seed=seed, fixed=fixed)
 
 
+def build_from_mask(mask: np.ndarray, Z: int, seed: int = 0) -> np.ndarray:
+    """Assign girth-aware shifts to an externally optimized mask (e.g.
+    from codes.pexit.search_mask).  The mask's parity part must carry the
+    canonical structure (weight-3 closing column + dual diagonal); its
+    shifts are pinned to the encodable pattern, everything else is
+    selected greedily 4-cycle-free.
+    """
+    from tpu_ldpc_torch.codes.pexit import parity_mask
+
+    mask = np.asarray(mask, dtype=bool)
+    mb, nb = mask.shape
+    kb = nb - mb
+    pm, _ = parity_mask(mb, nb)
+    if not np.array_equal(mask[:, kb:], pm[:, kb:]):
+        raise ValueError("mask parity part is not the canonical structure")
+    fixed: dict[tuple[int, int], int] = {}
+    for r, s in zip((0, mb // 2, mb - 1), (1, 0, 1)):
+        fixed[(r, kb)] = s
+    for t in range(1, mb):
+        fixed[(t - 1, kb + t)] = 0
+        fixed[(t, kb + t)] = 0
+    return select_shifts(mask, Z, seed=seed, fixed=fixed)
+
+
 # rate name -> (mb, nb) protograph shape, 802.11n-style nb=24 templates
 _RATE_SHAPES = {
     "1/2": (12, 24),
@@ -371,8 +489,8 @@ def family_cell_seed(family: str, rate: str, Z: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def family_base_graph(family: str, rate: str, Z: int) -> np.ndarray:
-    """The base graph of a (family, rate, Z) registry cell, read from its
-    committed shift table."""
+    """The base graph of a (family, rate, Z) registry cell: its committed
+    shift table, else the cell generated from its seed."""
     if family not in FAMILY_LIFTS:
         raise ValueError(f"unknown family {family!r}; have {list(FAMILY_LIFTS)}")
     if rate not in _RATE_SHAPES:
@@ -382,14 +500,62 @@ def family_base_graph(family: str, rate: str, Z: int) -> np.ndarray:
             f"family {family!r} supports Z in {FAMILY_LIFTS[family]}, got {Z}"
         )
     path = os.path.join(_DATA_DIR, f"{family}_r{rate.replace('/', '')}_z{Z}.qc")
-    if not os.path.exists(path):
-        raise NotImplementedError(
-            f"{path}: no committed shift table; generating a cell needs the "
-            "girth annealer, not ported yet (ROADMAP Queue 1 item 10)"
-        )
-    from tpu_ldpc_torch.codes.alist import load_shift_table
+    if os.path.exists(path):
+        from tpu_ldpc_torch.codes.alist import load_shift_table
 
-    return np.asarray(load_shift_table(path).B)
+        return np.asarray(load_shift_table(path).B)
+    return generate_family_cell(family, rate, Z,
+                                family_cell_seed(family, rate, Z))
+
+
+@functools.lru_cache(maxsize=None)
+def _load_profiles() -> dict:
+    """PEXIT-optimized degree profiles (codes/pexit.py search output):
+    per rate, masks ranked by ensemble BP threshold."""
+    import json
+
+    path = os.path.join(_DATA_DIR, "profiles.json")
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
+def generate_family_cell(
+    family: str, rate: str, Z: int, seed: int, profile: str = "legacy"
+) -> np.ndarray:
+    """Construct + girth-anneal one family cell (what produced the
+    committed data tables; kept for reproducibility and custom cells).
+
+    profile:
+      'legacy' (default) -- heavy columns + weight-4 info columns, the
+        profile that measured best at the registry's blocklengths
+        (n ~ 1-2.3k) in the JAX package's CPU FER runs.
+      'pexit' -- degree profile from the committed PEXIT mask registry
+        (codes/pexit.py search output, data/profiles.json), masks tried
+        in threshold rank order subject to 4-cycle-free liftability.
+        Better asymptotically; use for large Z / long blocklengths.
+    """
+    from tpu_ldpc_torch.codes.anneal import anneal_shifts
+
+    mb, nb = _RATE_SHAPES[rate]
+    if profile == "pexit":
+        prof = _load_profiles().get(rate)
+        masks = list(prof["masks"]) if prof else []
+        if family != "wifi" and len(masks) > 1:
+            # keep families distinct: non-wifi prefers the runner-up mask
+            masks = masks[1:] + masks[:1]
+        for mask in masks:
+            B = build_from_mask(np.asarray(mask, bool), Z, seed=seed)
+            B, stats = anneal_shifts(B, Z, steps=15000, seed=seed,
+                                     w4=1e6, ace=True)
+            if stats["c4"] == 0:
+                return B
+        # no registry / nothing liftable: fall through to legacy
+    B = make_base_graph(mb, nb, Z, seed=seed,
+                        info_weight=4 if mb >= 6 else 3)
+    B, _stats = anneal_shifts(B, Z, steps=2000, seed=seed)
+    return B
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,5 +1,7 @@
-"""GF(2) linear algebra for the encoders (the port's copy of
-``tpu_ldpc/golden/encoder.py``'s row reduction, inverse and parity map).
+"""GF(2) linear algebra and the systematic NumPy encoder (the port's copy
+of ``tpu_ldpc/golden/encoder.py``: row reduction, rank, inverse, parity
+map, ``encode``).  These are the plain versions of the native helper's
+bit-packed routines (``tpu_ldpc_torch/_native``).
 
 Encoding convention: codeword c = [u | p] with u the k info bits first,
 p the m parity bits last; H [A | B] c^T = 0  =>  p = B^{-1} A u (GF(2)).
@@ -35,6 +37,11 @@ def gf2_row_reduce(M: np.ndarray) -> tuple[np.ndarray, list[int]]:
     return M, pivots
 
 
+def gf2_rank(M: np.ndarray) -> int:
+    _, pivots = gf2_row_reduce(M)
+    return len(pivots)
+
+
 def gf2_inv(M: np.ndarray) -> np.ndarray:
     """Invert a square GF(2) matrix (raises ValueError if singular)."""
     M = (np.asarray(M) % 2).astype(np.uint8)
@@ -58,3 +65,15 @@ def parity_map(H) -> np.ndarray:
     # the NR-like mothers at Z=64)
     return ((Binv.astype(np.float64) @ A.astype(np.float64)) % 2).astype(
         np.uint8)
+
+
+def encode(H, u: np.ndarray, M: np.ndarray | None = None) -> np.ndarray:
+    """Systematic encode on the host. u: (batch, k) -> c: (batch, n)."""
+    u = (np.asarray(u) % 2).astype(np.uint8)
+    if u.ndim == 1:
+        u = u[None, :]
+    if M is None:
+        M = parity_map(H)
+    # float32 BLAS is exact here: 0/1 entries, partial sums <= k < 2^24
+    p = (u.astype(np.float32) @ M.T.astype(np.float32)) % 2
+    return np.concatenate([u, p.astype(np.uint8)], axis=1)
