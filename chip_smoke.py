@@ -29,7 +29,12 @@ hard-decision and windowed decoders against their CPU runs; slice 9:
 code construction and analysis (the trapping-set census of the
 punctured NR mother on K1 against its frozen TPU-run row, the impulse
 d_min probe on K3, the construction CLI with the g++-built native helper,
-a family cell without a committed table) -- times kernels and plain
+a family cell without a committed table); slice 10: distribution
+(run_ber and the grid sweep over a world-1 NCCL mesh against the
+single-device counters, two gloo ranks sharing the card against the
+replay of their streams, the ring and partitioned decoders against the
+plain decoder, build_decode_fn's routing, the torchrun launcher against
+the single-process CLI, --profile) -- times kernels and plain
 versions with CUDA events, and prints:
 
   - one line per phase;
@@ -895,6 +900,469 @@ def _slice9_times(dev, probe, smi):
     print(f"[5 slice9] wall {time.perf_counter() - t_phase:.2f} s")
 
 
+# slice 10: distribution.  World 1 runs NCCL in this process (a group of
+# one on an in-process store); two ranks share the one card over gloo
+# (spawned processes that compute on cuda:0, collectives staged through
+# the host: NCCL refuses two ranks on one card).  The MC counters must
+# equal the single-device ones exactly: world 1 run_ber and the grid
+# sweep against run_ber and the single-device batches, two ranks against
+# the replay of both rank streams.  The ring decoder on sc_l128_z64 and
+# the partitioned decoder on the 12x24 Z=512 code (flooding state 394 KB
+# and 320 KB, beyond one block's 227 KB) decode random codewords at an
+# Eb/N0 where the plain decoder converges on about half of the frames:
+# the two ranks' output on the card equals the same two ranks' output on
+# the CPU bit for bit (first DIST_CPU_FRAMES frames), it agrees with the
+# plain single-device decoder on >= DIST_MIN_AGREEMENT of frames (the
+# distributed posterior sums in another order), and every ok frame is
+# syndrome-valid.
+DIST_GRID = (1.5, 2.0, 2.5)
+DIST_MAX_FRAMES = 65536
+DIST_ITERS, DIST_BATCH, DIST_MIN_AGREEMENT = 20, 1024, 0.95
+DIST_CPU_FRAMES = 64
+DIST_CLI = ["--family", "judged", "--ebn0", "1.5", "2.0", "--device",
+            "cuda", "--batch", str(BATCH)]
+
+
+def _dist_codes():
+    """{decoder: (code, Eb/N0 of its LLRs)}: the two codes build_decode_fn
+    (mesh=...) routes away from the flooding kernel, each at an Eb/N0
+    where min-sum at DIST_ITERS converges on about half of the frames."""
+    from tpu_ldpc_torch import LdpcCode
+    from tpu_ldpc_torch.codes import make_base_graph
+    from tpu_ldpc_torch.codes.base_graphs import make_sc_base_graph
+
+    return {
+        "ring": (LdpcCode.from_base_graph(make_sc_base_graph(128, 64), 64,
+                                          "sc_l128_z64"), 1.9),
+        "partitioned": (LdpcCode.from_base_graph(
+            make_base_graph(12, 24, 512, seed=3), 512, "nonbanded_z512"),
+            2.25),
+    }
+
+
+def _dist_decoder(kind, code, mesh):
+    from tpu_ldpc_torch.dist.partitioned import build_partitioned_decoder
+    from tpu_ldpc_torch.dist.ring import build_ring_decoder
+
+    build = build_ring_decoder if kind == "ring" else build_partitioned_decoder
+    return build(code, mesh, algo="minsum", iters=DIST_ITERS, alpha=0.75,
+                 beta=0.0)
+
+
+def _fields(results):
+    """SnrResults as dicts without their wall time."""
+    import dataclasses
+
+    return [{k: v for k, v in dataclasses.asdict(r).items() if k != "wall_s"}
+            for r in results]
+
+
+def _check_grid(points, what):
+    """Each grid point's counters equal the sum of the single-device
+    batches (build_mc_step, one batch a call) whose ctrs it issued."""
+    import numpy as np
+
+    from tpu_ldpc_torch import LdpcCode
+    from tpu_ldpc_torch.sim.mc import COUNTER_FIELDS, DecodeCfg, build_mc_step
+
+    step = build_mc_step(LdpcCode.judged(), DecodeCfg(), BATCH, 1,
+                         device="cuda")
+    for p, (ebn0, r) in enumerate(zip(DIST_GRID, points)):
+        got = [r[f] for f in COUNTER_FIELDS]
+        want = sum(np.asarray(step(SEED, p, ebn0, ctr).tolist())
+                   for ctr in range(r["frames"] // BATCH))
+        if got != want.tolist():
+            raise AssertionError(f"{what} grid point {ebn0} dB: {got} != "
+                                 f"the single-device batches {want}")
+        print(f"[4 dist] {what} grid {ebn0} dB: frames={r['frames']} "
+              f"frame_errors={r['frame_errors']} == the single-device "
+              f"batches 0..{r['frames'] // BATCH - 1}")
+
+
+def _codeword_llrs(code, batch, ebn0_db, seed, dev):
+    """((batch, n) float32 CPU LLRs, (batch, n) uint8 CPU codewords) of
+    random codewords over AWGN, Eb/N0 referenced to the design rate.  The
+    codewords are the pivot encoder's (``encode/encoder.py``: an SC
+    chain's H is rank-deficient), its GF(2) row reduction on the native
+    helper and its product on `dev`."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from tpu_ldpc_torch import _native
+
+    H = np.asarray(sp.csr_matrix(code.H).todense())
+    rref, pivots = _native.gf2_row_reduce(H)
+    free = np.setdiff1d(np.arange(code.n), pivots)
+    MT = torch.from_numpy(
+        rref[:len(pivots)][:, free].T.astype(np.float64)).to(dev)
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 2, (batch, len(free))).astype(np.uint8)
+    c = np.zeros((batch, code.n), np.uint8)
+    c[:, free] = u
+    c[:, pivots] = torch.remainder(torch.from_numpy(u).to(dev).double() @ MT,
+                                   2.0).to(torch.uint8).cpu().numpy()
+    cw = torch.from_numpy(c)
+    if not _syndrome_valid(code, cw, torch.ones(batch, dtype=torch.bool)):
+        raise AssertionError(f"{code.name}: a drawn codeword violates H")
+    sigma2 = 1.0 / (2 * code.rate * 10 ** (ebn0_db / 10))
+    y = (1.0 - 2.0 * c) + np.sqrt(sigma2) * rng.normal(size=c.shape)
+    return torch.from_numpy((2.0 / sigma2 * y).astype(np.float32)), cw
+
+
+def _syndrome_valid(code, bits, ok):
+    """True when every ok frame of bits satisfies H (on bits' device)."""
+    from tpu_ldpc_torch.decode.reference import (
+        _block_structure, _syndrome_ok)
+
+    edges, row_edges, _ = _block_structure(code)
+    P = -bits.float().view(bits.shape[0], code.nb, code.Z)  # bit 1: < 0
+    return bool(_syndrome_ok(P, edges, row_edges)[ok].all())
+
+
+def _slice10_rank(rank, port, out_dir):
+    """One of the two gloo ranks on the one card (chip_smoke.py
+    --slice10-rank R PORT DIR): the sharded MC step (its counters and
+    host time a call), the grid sweep, the ring and partitioned decoders
+    on DIR/slice10_llrs.pt; results to DIR/slice10_rank<R>.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_ldpc_torch import LdpcCode
+    from tpu_ldpc_torch.decode.cuda_bp import LAUNCHES, reset_launches
+    from tpu_ldpc_torch.dist import (
+        build_sharded_mc_step, init_distributed, make_mesh)
+    from tpu_ldpc_torch.dist.grid import run_ber_grid
+    from tpu_ldpc_torch.sim.mc import DecodeCfg
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=rank,
+                      WORLD_SIZE="2", LOCAL_RANK=rank, LOCAL_WORLD_SIZE="2")
+    init_distributed(backend="gloo", device="cuda",
+                     timeout=datetime.timedelta(seconds=120))
+    reset_launches()
+    mesh = make_mesh(device="cuda:0")
+    judged = LdpcCode.judged()
+    step = build_sharded_mc_step(judged, DecodeCfg(), BATCH, mesh,
+                                 steps_per_call=8)
+    out = {"step": step(SEED, 0, 2.0, 0).tolist(), "step_ms": []}
+    for c in range(1, 6):
+        t0 = time.perf_counter()
+        step(SEED, 0, 2.0, 8 * c).tolist()  # waits for the counters
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    out["grid"] = _fields(run_ber_grid(
+        judged, DIST_GRID, DecodeCfg(), BATCH, 100, DIST_MAX_FRAMES, SEED,
+        mesh))
+    llrs = torch.load(os.path.join(out_dir, "slice10_llrs.pt"))
+    for kind, (code, _) in _dist_codes().items():
+        fn = _dist_decoder(kind, code, mesh)
+        llr = llrs[kind][0].to(mesh.device)
+        fn(llr)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(llr)
+        torch.cuda.synchronize()
+        out[f"{kind}_ms"] = (time.perf_counter() - t0) * 1e3
+        out[kind] = [x.cpu() for x in res]
+        # the same two ranks on the CPU (gloo needs no staging there)
+        out[f"{kind}_cpu"] = fn(llrs[kind][0][:DIST_CPU_FRAMES])
+    out["launches"] = {k: n for k, n in LAUNCHES.items() if n}
+    dist.barrier()
+    dist.destroy_process_group()
+    out["jax"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "tpu_ldpc"))
+    torch.save(out, os.path.join(out_dir, f"slice10_rank{rank}.pt"))
+    return 0
+
+
+def _spawn(argv, **kw):
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(var, None)
+    # a session of its own: _wait kills torchrun's workers with it
+    return subprocess.Popen([sys.executable, *argv], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True, **kw)
+
+
+def _wait(procs, timeout):
+    """{name: (rc, output)} of every process; on a timeout or a failure
+    here, kills every process group still running."""
+    import signal
+
+    outs = {}
+    try:
+        for name, p in procs.items():
+            out, _ = p.communicate(timeout=timeout)
+            outs[name] = (p.returncode, out)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    return outs
+
+
+def _csv_rows(path):
+    """A sweep CSV's rows without the wall time (the last column)."""
+    with open(path) as f:
+        lines = f.read().strip().splitlines()
+    return [ln.rsplit(",", 1)[0] for ln in lines[1:]]
+
+
+def _slice10_path(dev):
+    """Distribution: world-1 NCCL run_ber(mesh) and the grid sweep against
+    the single-device counters, two gloo ranks on the one card against
+    the replay of their streams, the ring and partitioned decoders
+    against the same ranks on the CPU and the plain decoder,
+    build_decode_fn's routing, the launcher.  Returns the two ranks'
+    results; their K1 launches are checked here and kept out of LAUNCHES,
+    which counts this process's launches."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_ldpc_torch import LdpcCode, _build
+    from tpu_ldpc_torch.decode.api import build_decode_fn
+    from tpu_ldpc_torch.decode.flood_plan import (
+        SMEM_LIMIT_BYTES, code_flood_smem_bytes, flood_plan, flood_smem_bytes)
+    from tpu_ldpc_torch.decode.reference import build_decoder
+    from tpu_ldpc_torch.dist import init_distributed, make_mesh
+    from tpu_ldpc_torch.dist.grid import run_ber_grid
+    from tpu_ldpc_torch.sim.mc import BatchFn, DecodeCfg, run_ber
+    from tpu_ldpc_torch.dist.mesh import fold_generator_rank
+
+    judged = LdpcCode.judged()
+    cfg = DecodeCfg()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    # the launcher's runs and the refusal start now, in parallel; each
+    # process builds nothing (phase 2's libraries are in build/)
+    trace_dir = os.path.join(OUT_DIR, "slice10_profile")
+    csvs = {k: os.path.join(OUT_DIR, f"slice10_{k}.csv")
+            for k in ("launch", "single")}
+    torchrun = ["-m", "torch.distributed.run", "--standalone"]
+    cli = {
+        "launch": _spawn(torchrun + [
+            "--nproc-per-node", "1", "-m", "tpu_ldpc_torch.cli.launch", "--",
+            *DIST_CLI, "--csv", csvs["launch"], "--profile", trace_dir]),
+        "single": _spawn(["-m", "tpu_ldpc_torch.sim", *DIST_CLI, "--csv",
+                          csvs["single"]]),
+        "two ranks": _spawn(torchrun + [
+            "--nproc-per-node", "2", "-m", "tpu_ldpc_torch.cli.launch", "--",
+            *DIST_CLI]),
+    }
+
+    # world 1, NCCL, in this process
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        os.environ.pop(var, None)
+    init_distributed(device="cuda")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"world 1 on the card: {dist.get_backend()}")
+    mesh = make_mesh()
+    kw = dict(batch=BATCH, target_frame_errors=100,
+              max_frames=DIST_MAX_FRAMES, seed=SEED, steps_per_call=8,
+              device="cuda")
+    got = _fields(run_ber(judged, [2.0], cfg, mesh=mesh, **kw))
+    want = _fields(run_ber(judged, [2.0], cfg, **kw))
+    if got != want:
+        raise AssertionError(f"world-1 run_ber(mesh) {got} != run_ber {want}")
+    print(f"[4 dist] world 1 NCCL run_ber(mesh) judged 2.0 dB b={BATCH} "
+          f"spc 8 == run_ber field for field: {got[0]}")
+    _check_grid(_fields(run_ber_grid(judged, DIST_GRID, cfg, BATCH, 100,
+                                     DIST_MAX_FRAMES, SEED, mesh)),
+                "world 1 NCCL")
+
+    # routing at world 1, and the host smem function against the library
+    codes = _dist_codes()
+    llrs = {kind: _codeword_llrs(code, DIST_BATCH, ebn0, SEED + 60 + i, dev)
+            for i, (kind, (code, ebn0)) in enumerate(codes.items())}
+    torch.save(llrs, os.path.join(OUT_DIR, "slice10_llrs.pt"))
+    dcfg = DecodeCfg(iters=DIST_ITERS)
+    for kind, (code, _) in codes.items():
+        fn = build_decode_fn(code, dcfg, "cuda", mesh=mesh)
+        if fn is not _dist_decoder(kind, code, mesh):
+            raise AssertionError(f"{code.name}: not routed to {kind}")
+        llr = llrs[kind][0]
+        card = fn(llr.to(dev))
+        cpu = fn(llr[:DIST_CPU_FRAMES])
+        if any(not torch.equal(a[:DIST_CPU_FRAMES].cpu(), b)
+               for a, b in zip(card, cpu)):
+            raise AssertionError(f"{kind} on the card != on the CPU")
+        print(f"[4 dist] routing: {code.name} (flooding state "
+              f"{code_flood_smem_bytes(code)} B > {SMEM_LIMIT_BYTES}) -> "
+              f"{kind} decoder; card == CPU on {DIST_CPU_FRAMES} frames, "
+              f"bit for bit (ok {float(cpu[1].double().mean()):.4f})")
+    lib = _build.load_library("bp_flood")
+    for code in (judged, LdpcCode.from_family("wifi", "2/3", 27),
+                 LdpcCode.from_family("wimax", "5/6", 96),
+                 LdpcCode.from_family("wimax", "1/2", 96),
+                 codes["ring"][0]):
+        lay = code.layout
+        bucket = flood_plan(code, tuple(int(s) for s in lay.edge_shift)).bucket
+        for bf16 in (0, 1):
+            want = lib.ldpc_bp_flood_smem_bytes(code.Z, code.mb, code.nb,
+                                                lay.E, bucket, bf16)
+            if flood_smem_bytes(code.Z, code.mb, code.nb, lay.E, bucket,
+                                bool(bf16)) != want:
+                raise AssertionError(f"{code.name}: flood_smem_bytes")
+        print(f"[4 dist] flood_smem_bytes == ldpc_bp_flood_smem_bytes: "
+              f"{code.name} bucket {bucket}: {code_flood_smem_bytes(code)} B")
+
+    # the launcher against the single-process sweep (done before the
+    # gloo ranks start, so that their times see an idle card)
+    outs = _wait(cli, 300)
+    for name, (rc, out) in outs.items():
+        print(f"[4 launch] {name}: rc={rc}, last lines: "
+              f"{out.strip().splitlines()[-3:]}")
+    if outs["launch"][0] or outs["single"][0]:
+        raise AssertionError(f"launcher / sweep failed:\n{outs}")
+    if _csv_rows(csvs["launch"]) != _csv_rows(csvs["single"]):
+        raise AssertionError("torchrun CSV != single-process CSV")
+    print(f"[4 launch] torchrun --nproc-per-node 1 CSV == python -m "
+          f"tpu_ldpc_torch.sim CSV row for row: {_csv_rows(csvs['single'])}")
+    if outs["two ranks"][0] == 0 or (
+            "more ranks than cards" not in outs["two ranks"][1]):
+        raise AssertionError("--nproc-per-node 2 on one card did not raise "
+                             "'more ranks than cards'")
+    print("[4 launch] --nproc-per-node 2 on one card: 'more ranks than "
+          "cards', rc != 0")
+    with open(os.path.join(trace_dir, "trace_rank0.json")) as f:
+        trace = f.read()
+    if "bp_flood_kernel" not in trace:
+        raise AssertionError("the --profile trace holds no K1 launch")
+    print(f"[4 launch] --profile: {len(trace)} B trace, "
+          f"{trace.count('bp_flood_kernel')} mentions of bp_flood_kernel")
+    # two ranks on the one card over gloo
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    ranks = {r: _spawn([os.path.abspath(__file__), "--slice10-rank", str(r),
+                        port, OUT_DIR]) for r in range(2)}
+    for r, (rc, out) in _wait(ranks, 600).items():
+        if rc != 0:
+            raise AssertionError(f"gloo rank {r} failed rc={rc}:\n{out}")
+    res = [torch.load(os.path.join(OUT_DIR, f"slice10_rank{r}.pt"))
+           for r in range(2)]
+    if any(r["jax"] for r in res):
+        raise AssertionError(f"a rank imported {res[0]['jax']}")
+    if res[0]["step"] != res[1]["step"] or res[0]["grid"] != res[1]["grid"]:
+        raise AssertionError("the two ranks' counters differ")
+    one = BatchFn(judged, cfg, BATCH, "cuda")
+    replay = sum(np.asarray(one(fold_generator_rank(SEED, 0, ctr, r, "cuda"),
+                                2.0).tolist())
+                 for ctr in range(8) for r in range(2))
+    if res[0]["step"] != replay.tolist():
+        raise AssertionError(f"two-rank step {res[0]['step']} != the "
+                             f"replay of both rank streams {replay}")
+    print(f"[4 dist] two gloo ranks on one card: sharded step (b={BATCH} a "
+          f"rank, spc 8, 2.0 dB) {res[0]['step']} == the replay of both "
+          "rank streams through K1")
+    _check_grid(res[0]["grid"], "two gloo ranks")
+    for kind, (code, ebn0) in codes.items():
+        for key in (kind, f"{kind}_cpu"):
+            for a, b in zip(res[0][key], res[1][key]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{key}: the ranks' outputs differ")
+        if any(not torch.equal(a[:DIST_CPU_FRAMES], b)
+               for a, b in zip(res[0][kind], res[0][f"{kind}_cpu"])):
+            raise AssertionError(f"{kind}: two ranks on the card != the "
+                                 "same two ranks on the CPU")
+        llr, cw = llrs[kind]
+        bits, ok, iu = (x.to(dev) for x in res[0][kind])
+        pb, pok, piu = build_decoder(code, "minsum", DIST_ITERS)(llr.to(dev))
+        share = float(((bits == pb).all(dim=1) & (ok == pok)).double().mean())
+        valid = _syndrome_valid(code, bits, ok)
+        cw = cw.to(dev)
+        right, pright = (float((b == cw).all(dim=1).double().mean())
+                         for b in (bits, pb))
+        plain_ok = float(pok.double().mean())
+        print(f"[4 dist] {kind} {code.name} two ranks b={DIST_BATCH} "
+              f"{ebn0} dB min-sum {DIST_ITERS} it, random codewords: card "
+              f"== CPU on {DIST_CPU_FRAMES} frames bit for bit; agreement "
+              f"with the plain decoder {share:.6f}, ok "
+              f"{float(ok.double().mean()):.4f} (plain {plain_ok:.4f}), "
+              f"codeword recovered {right:.4f} (plain {pright:.4f}), ok "
+              f"frames syndrome-valid {valid}")
+        if share < DIST_MIN_AGREEMENT or not valid:
+            raise AssertionError(f"{kind}: agreement {share}, valid {valid}")
+        if not 0.1 <= plain_ok <= 0.9:
+            raise AssertionError(f"{kind}: the plain decoder converges on "
+                                 f"{plain_ok} of frames: the check needs "
+                                 "both outcomes")
+    k1 = [r["launches"].get("minsum_flood", 0) for r in res]
+    if min(k1) < 1:
+        raise AssertionError(f"a gloo rank launched no K1: "
+                             f"{[r['launches'] for r in res]}")
+    print(f"[4 dist] K1 launches in the two gloo ranks: {k1[0]} / {k1[1]} "
+          "(their own processes' counts, not in this path's count)")
+
+    return res
+
+
+def _slice10_times(dev, res, smi):
+    """Host ms a call of the world-1 sharded step (NCCL all_reduce) against
+    run_ber's step, the two gloo ranks' step (host staging included), the
+    ring and partitioned decoders' ms a batch at world 1 (CUDA events)
+    with device events and busy share (profiler), and their two-rank host
+    ms; then the world-1 group is destroyed."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_ldpc_torch import LdpcCode
+    from tpu_ldpc_torch.dist import build_sharded_mc_step, make_mesh
+    from tpu_ldpc_torch.sim.mc import DecodeCfg, build_mc_step
+
+    t0 = time.perf_counter()
+    judged = LdpcCode.judged()
+    mesh = make_mesh()
+    steps = {"run_ber step": build_mc_step(judged, DecodeCfg(), BATCH, 8,
+                                           device="cuda"),
+             "world-1 sharded step": build_sharded_mc_step(
+                 judged, DecodeCfg(), BATCH, mesh, steps_per_call=8)}
+    ms = {name: [] for name in steps}
+    for name in steps:
+        steps[name](SEED, 0, 2.0, 0).tolist()
+    for k, name in enumerate(list(steps) + list(steps)[::-1]):
+        for c in range(5):
+            t1 = time.perf_counter()
+            steps[name](SEED, 0, 2.0, 8 * (c + 1 + 5 * k)).tolist()
+            ms[name].append((time.perf_counter() - t1) * 1e3)
+    for name, v in ms.items():
+        m = sum(v) / len(v)
+        print(f"[5 slice10] {name} judged b={BATCH} spc 8 2.0 dB: "
+              f"{m:.4f} ms a call (host clock, mean of {len(v)}) = "
+              f"{m / 8:.4f} ms a batch; {smi}")
+    two = [sum(r["step_ms"]) / len(r["step_ms"]) for r in res]
+    print(f"[5 slice10] two gloo ranks on one card, sharded step b={BATCH} a "
+          f"rank spc 8: {two[0]:.4f} / {two[1]:.4f} ms a call (ranks 0 / 1, "
+          f"host clock, {res[0]['step_ms']}) = "
+          f"{2 * 8 * BATCH / (max(two) * 1e-3):.4e} frames/s together")
+    llrs = torch.load(os.path.join(OUT_DIR, "slice10_llrs.pt"))
+    for kind, (code, ebn0) in _dist_codes().items():
+        fn = _dist_decoder(kind, code, mesh)
+        llr = llrs[kind][0].to(dev)
+        out = fn(llr)
+        torch.cuda.synchronize()
+        t_ms = [_cuda_time_ms(lambda: fn(llr), 3) for _ in range(2)]
+        events, busy = _device_events(lambda: fn(llr))
+        batch_ms = sum(t_ms) / 2
+        print(f"[5 slice10] {kind} {code.name} world 1 NCCL b={DIST_BATCH} "
+              f"{ebn0} dB min-sum {DIST_ITERS} it: {batch_ms:.4f} ms/batch "
+              f"({t_ms[0]:.4f}, {t_ms[1]:.4f}), mean iters "
+              f"{float(out[2].double().mean()):.3f}; {events} device events "
+              f"a decode, busy {busy:.4f} ms ({100 * busy / batch_ms:.1f}% "
+              f"of the untraced time; profiler); two gloo ranks "
+              f"{res[0][f'{kind}_ms']:.4f} / {res[1][f'{kind}_ms']:.4f} ms "
+              f"(host clock)")
+    dist.destroy_process_group()
+    print(f"[5 slice10] wall {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1290,6 +1758,7 @@ def main() -> int:
         print(f"[4 cli] wrote {csv}: frames={row[1]} FER={row[7]}")
 
     twophase = {}
+    slice10 = {}
 
     def slice2_path():
         """Layered min-sum, exact sum-product and two-phase decoding:
@@ -1606,7 +2075,9 @@ def main() -> int:
                                  dev, kernel, cli_sim.main), KERNELS[:2]),
                              ("slice 9", lambda: _slice9_path(
                                  dev, chunk0, probe),
-                              (KERNELS[0], KERNELS[2]))):
+                              (KERNELS[0], KERNELS[2])),
+                             ("slice 10", lambda: slice10.update(
+                                 ranks=_slice10_path(dev)), KERNELS[:1])):
         t_phase = time.perf_counter()
         reset_launches()
         path()
@@ -1803,6 +2274,7 @@ def main() -> int:
 
     _slice8_times(dev)
     _slice9_times(dev, probe, smi)
+    _slice10_times(dev, slice10["ranks"], smi)
 
     print(f"[5] wall {time.perf_counter() - t_phase:.2f} s")
 
@@ -1816,4 +2288,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--slice10-rank"]:
+        sys.exit(_slice10_rank(*sys.argv[2:]))
     sys.exit(main())

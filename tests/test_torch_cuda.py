@@ -672,3 +672,56 @@ def test_impulse_probe_on_card_finds_toy_dmin(cuda):
     ub, st = estimate_dmin_impulse(code)
     assert LAUNCHES["sumproduct_flood"] == 1
     assert ub == 4 and st["converged_nonzero"] > 0
+
+
+def test_host_flood_smem_bytes_equals_the_library(cuda):
+    """decode/flood_plan.py's flood_smem_bytes (the routing decision of
+    build_decode_fn(mesh=...)) equals the C entry point on the judged
+    code and one code of each bucket, float32 and bf16 messages."""
+    from tpu_ldpc_torch._build import load_library
+    from tpu_ldpc_torch.codes.base_graphs import make_sc_base_graph
+    from tpu_ldpc_torch.decode.flood_plan import (
+        code_flood_smem_bytes, flood_smem_bytes)
+
+    lib = load_library("bp_flood")
+    cases = [codes(*c[:3])[1] for c in CODES]  # buckets 8, 16, 32
+    cases.append(LdpcCode.from_family("wimax", "1/2", 96))  # bucket 0
+    cases.append(LdpcCode.from_base_graph(make_sc_base_graph(128, 64), 64,
+                                          "sc_l128_z64"))
+    for code in cases:
+        lay = code.layout
+        plan = flood_plan(code, tuple(int(s) for s in lay.edge_shift))
+        for bf16 in (0, 1):
+            want = lib.ldpc_bp_flood_smem_bytes(code.Z, code.mb, code.nb,
+                                                lay.E, plan.bucket, bf16)
+            assert flood_smem_bytes(code.Z, code.mb, code.nb, lay.E,
+                                    plan.bucket, bool(bf16)) == want
+        assert code_flood_smem_bytes(code) == lib.ldpc_bp_flood_smem_bytes(
+            code.Z, code.mb, code.nb, lay.E, plan.bucket, 0)
+
+
+def test_world_one_nccl_run_ber_equals_run_ber(cuda):
+    """run_ber over a world-1 NCCL mesh (made in this process, no
+    torchrun) equals run_ber without a mesh field for field: rank 0 draws
+    the single-device streams and the all_reduce of one rank is exact."""
+    import torch.distributed as dist
+
+    from tpu_ldpc_torch.dist import init_distributed, make_mesh
+    from tpu_ldpc_torch.sim.mc import DecodeCfg, run_ber
+
+    assert not dist.is_initialized()
+    init_distributed(device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh()
+        code = LdpcCode.judged()
+        kw = dict(cfg=DecodeCfg(), batch=1024, target_frame_errors=50,
+                  max_frames=65536, seed=3, device="cuda")
+        want = run_ber(code, [2.0, 2.5], **kw)
+        got = run_ber(code, [2.0, 2.5], mesh=mesh, **kw)
+        for g, w in zip(got, want):
+            g, w = dataclasses.asdict(g), dataclasses.asdict(w)
+            g.pop("wall_s"), w.pop("wall_s")
+            assert g == w
+    finally:
+        dist.destroy_process_group()

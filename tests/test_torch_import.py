@@ -32,7 +32,10 @@ PORT_MODULES = (
     "tpu_ldpc_torch.codes.anneal", "tpu_ldpc_torch.codes.peg",
     "tpu_ldpc_torch.codes.pexit", "tpu_ldpc_torch.codes.dmin",
     "tpu_ldpc_torch.codes.trapping", "tpu_ldpc_torch.cli.codegen",
-    "tpu_ldpc_torch.report.plots",
+    "tpu_ldpc_torch.report.plots", "tpu_ldpc_torch.dist",
+    "tpu_ldpc_torch.dist.mesh", "tpu_ldpc_torch.dist.grid",
+    "tpu_ldpc_torch.dist.partitioned", "tpu_ldpc_torch.dist.ring",
+    "tpu_ldpc_torch.cli.launch",
 )
 
 
@@ -70,7 +73,12 @@ def test_no_port_module_imports_the_jax_package():
     paths = sorted(glob.glob(os.path.join(REPO, "tpu_ldpc_torch", "**",
                                           "*.py"), recursive=True))
     paths += [os.path.join(REPO, "chip_smoke.py"),
-              os.path.join(REPO, "scripts", "torch_ab_time.py")]
+              os.path.join(REPO, "scripts", "torch_ab_time.py"),
+              os.path.join(REPO, "tests", "torch_dist_worker.py")]
+    for mod in PORT_MODULES:  # every listed module is scanned
+        rel = mod.replace(".", os.sep)
+        assert (os.path.join(REPO, rel + ".py") in paths
+                or os.path.join(REPO, rel, "__init__.py") in paths), mod
     assert len(paths) > 20
     for path in paths:
         bad = [m for m in _imported_modules(path)

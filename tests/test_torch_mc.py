@@ -146,7 +146,7 @@ def test_cuda_request_without_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("what", [
     "wbf", "bitflip", "windowed", "jnp", "nr", "mesh", "profile"])
-def test_unsupported_modes_raise(what):
+def test_unsupported_modes_raise(what, tmp_path, monkeypatch):
     from tpu_ldpc_torch.cli.sim import main
 
     if what == "nr":
@@ -179,9 +179,26 @@ def test_unsupported_modes_raise(what):
             assert res.iter_sum <= 16 * 10
         return
     if what in ("mesh", "profile"):
-        flag = {"mesh": ["--mesh"], "profile": ["--profile", "p"]}[what]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["--family", "judged", "--device", "cpu", *flag])
+        # ported since (both raised before slice 10): --mesh sweeps over a
+        # group of one made in this process (no torchrun), --profile
+        # writes a Chrome trace
+        import torch.distributed as dist
+
+        for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+            monkeypatch.delenv(var, raising=False)
+        trace = tmp_path / "prof"
+        flag = {"mesh": ["--mesh"], "profile": ["--profile", str(trace)]}[what]
+        try:
+            res = main(["--family", "judged", "--device", "cpu", "--ebn0",
+                        "3.0", "--batch", "8", "--max-frames", "8",
+                        "--iters", "5", *flag])
+            assert dist.is_initialized() == (what == "mesh")
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        assert [r.frames for r in res] == [8]
+        if what == "profile":
+            assert (trace / "trace_rank0.json").stat().st_size > 1000
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_ber(toy_code(), [2.0], DecodeCfg(impl="jnp"), batch=8,

@@ -60,8 +60,8 @@ def test_search_matches_jax(monkeypatch, target, lo, hi, converged):
         target_frame_errors=40, batch=64, seed=3)
     assert [c[:5] for c in port_calls] == [c[:5] for c in jax_calls]
     assert all(c[5] is cfg for c in port_calls)
-    # run_ber gets adapt as in the JAX package (which also passes mesh)
-    assert {c[6] for c in port_calls} == {("adapt", "device")}
+    # run_ber gets adapt and mesh as in the JAX package, and the device
+    assert {c[6] for c in port_calls} == {("adapt", "device", "mesh")}
     assert {c[6] for c in jax_calls} == {("adapt", "mesh")}
     assert port_calls[0][1] == int(4 * 40 / target)  # default max_frames
     assert got.converged == want.converged == converged

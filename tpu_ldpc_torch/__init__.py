@@ -19,7 +19,9 @@ the NR-like BG1/BG2 families, puncturing and shortening, the BSC, an
 outer CRC that gates the counters, and IR-HARQ.  Slice 8 adds the
 hard-decision and windowed decoders; slice 9 code construction and
 analysis (annealing, PEG, PEXIT, d_min bounds, the trapping-set census,
-the construction CLI):
+the construction CLI); slice 10 distribution over ranks (the sharded MC
+step, the grid-sharded sweep, the partitioned and ring decoders, the
+torchrun launcher):
 
 - ``codes``: LdpcCode, the registry, the Tanner layout, GF(2) algebra,
   construction and analysis (host NumPy);
@@ -35,7 +37,9 @@ the construction CLI):
   CUDA decode kernels for sm_90a;
 - ``decode.twophase``, ``decode.knobs``: two-phase decoding;
 - ``decode.api``, ``sim`` (``run_ber``, ``find_ebn0_at_fer``,
-  ``harq.run_irharq``), ``cli``, ``report``: the public entry points.
+  ``harq.run_irharq``), ``cli``, ``report``: the public entry points;
+- ``dist``: process groups (``init_distributed``, ``make_mesh``), the
+  sharded MC step, the grid sweep, the partitioned and ring decoders.
 
 Every function takes an explicit ``device`` (or follows its input
 tensor's device) and every random draw on the device an explicit
@@ -47,3 +51,10 @@ match it.
 __version__ = "0.7.0"
 
 from tpu_ldpc_torch.codes.code import LdpcCode  # noqa: F401
+from tpu_ldpc_torch.dist import (  # noqa: F401
+    build_sharded_mc_step,
+    fold_generator_rank,
+    init_distributed,
+    make_mesh,
+    run_ber_sharded,
+)

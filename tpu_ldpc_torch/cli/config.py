@@ -100,6 +100,7 @@ class RunCfg:
     target_frame_errors: int = 100
     max_frames: int = 1_000_000
     seed: int = 0
+    use_mesh: bool = False   # sweep over the ranks of the process group
     state_path: str = ""     # checkpoint file; empty = no checkpointing
     out_csv: str = ""
     jsonl: str = ""          # structured per-point records

@@ -31,19 +31,22 @@ FER between min and max of ``--ebn0`` instead of sweeping.
 systematic blocks punctured unless ``--puncture-blocks`` /
 ``--shorten-blocks`` name another adaptation); ``--crc`` attaches an
 outer CRC that gates the detected / undetected counters.
-``--mesh`` and ``--profile`` are not ported yet and raise.
+``--mesh`` sweeps over the ranks of the process group
+(``dist/mesh.py``: one process per rank, launched by ``torchrun``, see
+``cli/launch.py``; alone it makes a group of one): `--batch` frames a
+rank, counters all-reduced, and only rank 0 prints the table and writes
+the CSV / JSONL.  ``--profile DIR`` runs the sweep under
+``torch.profiler`` (CPU, and CUDA activities on the card) and writes a
+Chrome trace per rank, ``DIR/trace_rank<r>.json``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import time
-
-_NOT_PORTED_FLAGS = {
-    "mesh": "multi-device sweeps are ROADMAP Queue 1 item 8",
-    "profile": "profiling the sweep is not ported yet (ROADMAP Queue 1 item 9)",
-}
 
 
 def build_parser():
@@ -102,11 +105,15 @@ def build_parser():
     p.add_argument("--csv", help="write waterfall CSV here")
     p.add_argument("--jsonl", help="write per-point JSONL records here")
     p.add_argument("--step-jsonl", help="write per-call JSONL records here")
-    p.add_argument("--mesh", action="store_true", help="not ported yet")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard the batch over the ranks of the process "
+                        "group (all-reduced counters); see cli/launch.py")
     p.add_argument("--find-fer", type=float, metavar="FER",
                    help="instead of sweeping, bisect for the Eb/N0 at "
                         "this target FER (range = min/max of --ebn0)")
-    p.add_argument("--profile", metavar="DIR", help="not ported yet")
+    p.add_argument("--profile", metavar="DIR",
+                   help="trace the sweep with torch.profiler into "
+                        "DIR/trace_rank<r>.json (Chrome trace)")
     return p
 
 
@@ -132,6 +139,7 @@ def args_to_config(args):
         "run.state_path": args.checkpoint, "run.out_csv": args.csv,
         "run.jsonl": args.jsonl, "run.step_jsonl": args.step_jsonl,
         "run.device": args.device, "channel.crc": args.crc,
+        "run.use_mesh": args.mesh or None,
     }
     for k, v in direct.items():
         if v is not None:
@@ -145,11 +153,28 @@ def args_to_config(args):
     return SimConfig.from_sources(args.config, overrides)
 
 
+@contextlib.contextmanager
+def _profiled(trace_dir: str | None, device: str, rank: int):
+    """torch.profiler around the block, its Chrome trace written to
+    trace_dir/trace_rank<rank>.json (nothing when trace_dir is None)."""
+    if trace_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir,
+                                          f"trace_rank{rank}.json"))
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, why in _NOT_PORTED_FLAGS.items():
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(f"--{flag.replace('_', '-')}: {why}")
     cfg = args_to_config(args)
 
     from tpu_ldpc_torch.report.waterfall import waterfall_csv, waterfall_table
@@ -162,42 +187,65 @@ def main(argv=None):
     state = (
         SweepState(cfg.run.state_path, chash) if cfg.run.state_path else None
     )
+    mesh = None
+    if cfg.run.use_mesh:
+        import torch
+        import torch.distributed as dist
+
+        from tpu_ldpc_torch.dist.mesh import init_distributed, make_mesh
+
+        init_distributed(device=cfg.run.device)
+        mesh = make_mesh()
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        print(f"[launch] process {mesh.rank}/{mesh.size}: backend "
+              f"{dist.get_backend()}, device {mesh.device}, {cards} local "
+              "card(s)", flush=True)
+    rank0 = mesh is None or mesh.rank == 0  # the one rank that reports
+    profiled = _profiled(args.profile, cfg.run.device,
+                         0 if mesh is None else mesh.rank)
+
     if args.find_fer is not None:
         from tpu_ldpc_torch.sim.search import find_ebn0_at_fer
 
         grid = cfg.channel.ebn0_grid
         t0 = time.time()
-        sr = find_ebn0_at_fer(
-            code, args.find_fer, cfg=cfg.decode,
-            lo=min(grid), hi=max(grid),
-            target_frame_errors=cfg.run.target_frame_errors,
-            batch=cfg.run.batch, seed=cfg.run.seed, adapt=adapt,
-            progress=True, device=cfg.run.device,
-        )
+        with profiled:
+            sr = find_ebn0_at_fer(
+                code, args.find_fer, cfg=cfg.decode,
+                lo=min(grid), hi=max(grid),
+                target_frame_errors=cfg.run.target_frame_errors,
+                batch=cfg.run.batch, seed=cfg.run.seed, mesh=mesh,
+                adapt=adapt, progress=rank0, device=cfg.run.device,
+            )
         status = "converged" if sr.converged else "OUT OF RANGE"
-        print(f"\nEb/N0 @ FER {args.find_fer:.2e}: {sr.ebn0_db:.3f} dB "
-              f"(bracket [{sr.bracket[0]:.3f}, {sr.bracket[1]:.3f}], "
-              f"{status}, {len(sr.probes)} probes, "
-              f"wall={time.time() - t0:.1f}s)")
+        if rank0:
+            print(f"\nEb/N0 @ FER {args.find_fer:.2e}: {sr.ebn0_db:.3f} dB "
+                  f"(bracket [{sr.bracket[0]:.3f}, {sr.bracket[1]:.3f}], "
+                  f"{status}, {len(sr.probes)} probes, "
+                  f"wall={time.time() - t0:.1f}s)")
         return sr
 
     t0 = time.time()
-    results = run_ber(
-        code,
-        cfg.channel.ebn0_grid,
-        cfg=cfg.decode,
-        batch=cfg.run.batch,
-        target_frame_errors=cfg.run.target_frame_errors,
-        max_frames=cfg.run.max_frames,
-        seed=cfg.run.seed,
-        progress=True,
-        state=state,
-        step_log=cfg.run.step_jsonl or None,
-        adapt=adapt,
-        crc=cfg.channel.crc,
-        device=cfg.run.device,
-    )
+    with profiled:
+        results = run_ber(
+            code,
+            cfg.channel.ebn0_grid,
+            cfg=cfg.decode,
+            batch=cfg.run.batch,
+            target_frame_errors=cfg.run.target_frame_errors,
+            max_frames=cfg.run.max_frames,
+            seed=cfg.run.seed,
+            progress=True,
+            state=state,
+            step_log=cfg.run.step_jsonl or None,
+            adapt=adapt,
+            crc=cfg.channel.crc,
+            mesh=mesh,
+            device=cfg.run.device,
+        )
     wall = time.time() - t0
+    if not rank0:
+        return results
 
     if adapt is not None:
         k_eff, n_tx = adapt.dims(code.n, code.k)
@@ -210,6 +258,7 @@ def main(argv=None):
           f"algo={cfg.decode.algo} iters={cfg.decode.iters} "
           f"schedule={cfg.decode.schedule}{window} impl={cfg.decode.impl} "
           f"device={cfg.run.device} "
+          f"{f'ranks={mesh.size} ' if mesh is not None else ''}"
           f"config={chash} wall={wall:.1f}s\n")
     print(waterfall_table(results))
     if cfg.run.out_csv:

@@ -23,6 +23,17 @@ or 'layered'); both are plain PyTorch on any device and take no
 Quantization with ``bitflip`` / ``wbf`` or the windowed schedule raises
 ValueError, as does ``window_sweep`` outside the windowed schedule, as in
 the JAX package.
+
+Long blocklengths: given a mesh (``dist/mesh.py``), ``build_decode_fn``
+sends a flooding float decode with impl='auto' whose state the flooding
+kernel cannot hold in one block's shared memory
+(``flood_plan.code_flood_smem_bytes`` above ``SMEM_LIMIT_BYTES``) to the
+ring decoder (``dist/ring.py``) when the code is banded (``is_banded``)
+and the ring can split it over the mesh (``fits_ring``), and to the
+row-striped partitioned decoder (``dist/partitioned.py``) otherwise.
+The JAX package tries the ring on any code; at one rank the ring takes
+every code, so the band test is what keeps a dense base on the
+partitioned decoder there.
 """
 
 from __future__ import annotations
@@ -32,6 +43,8 @@ import torch
 
 from tpu_ldpc_torch.codes.code import LdpcCode
 from tpu_ldpc_torch.codes_device import resolve_device
+from tpu_ldpc_torch.decode.flood_plan import (
+    SMEM_LIMIT_BYTES, code_flood_smem_bytes)
 
 _NOT_PORTED_IMPL = {
     "pallas": "the TPU kernel's counterpart is impl='cuda' "
@@ -41,11 +54,14 @@ _NOT_PORTED_IMPL = {
 }
 
 
-def build_decode_fn(code: LdpcCode, cfg, device):
+def build_decode_fn(code: LdpcCode, cfg, device, mesh=None):
     """cfg: sim.mc.DecodeCfg (or anything with the same fields).
 
     Returns fn(llr (batch, n) float32 on `device`) -> (bits, ok, iters_used)
-    with early termination on."""
+    with early termination on.  mesh: a ``dist.mesh.Mesh``; a code the
+    flooding kernel cannot hold then decodes on the ring or the
+    partitioned decoder (module docstring), which every rank of the mesh
+    calls with the same LLRs."""
     device = resolve_device(device)
     impl = getattr(cfg, "impl", "auto")
     # the one set of quantization keywords every decoder below takes
@@ -77,6 +93,21 @@ def build_decode_fn(code: LdpcCode, cfg, device):
             code, window=cfg.window, iters_per_window=cfg.iters,
             algo=cfg.algo, alpha=cfg.alpha, beta=cfg.beta,
             sweep=getattr(cfg, "window_sweep", "flooding"), device=device)
+    elif (mesh is not None and impl == "auto"
+          and quant["quant_bits"] is None and cfg.schedule == "flooding"
+          and code_flood_smem_bytes(code) > SMEM_LIMIT_BYTES):
+        from tpu_ldpc_torch.dist.ring import (
+            build_ring_decoder, fits_ring, is_banded)
+
+        if is_banded(code) and fits_ring(code, mesh.size):
+            return build_ring_decoder(
+                code, mesh, algo=cfg.algo, iters=cfg.iters, alpha=cfg.alpha,
+                beta=cfg.beta)
+        from tpu_ldpc_torch.dist.partitioned import build_partitioned_decoder
+
+        return build_partitioned_decoder(
+            code, mesh, algo=cfg.algo, iters=cfg.iters, alpha=cfg.alpha,
+            beta=cfg.beta)
     else:
         run = _build_bp(code, cfg, device, impl, quant)
 

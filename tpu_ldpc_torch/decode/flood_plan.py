@@ -51,6 +51,25 @@ VN_BASE_BITS = 17      # vn_info = (col_deg << 17) | base, as uint32
 SMEM_LIMIT_BYTES = 232_448  # 227 KB: the most one Hopper block may use
 
 
+def flood_smem_bytes(Z: int, mb: int, nb: int, E: int, bucket: int,
+                     msg_bf16: bool = False) -> int:
+    """Shared memory of one flooding block: L, P and the VN table (4 B a
+    variable each), bucket 0's per-edge tables (row_ptr and three per
+    edge), and R in float32 or bf16.  The C entry point
+    ldpc_bp_flood_smem_bytes computes the same."""
+    return (3 * nb * Z * 4 + ((mb + 1 + 3 * E) * 4 if bucket == 0 else 0)
+            + E * Z * (2 if msg_bf16 else 4))
+
+
+def code_flood_smem_bytes(code: LdpcCode) -> int:
+    """flood_smem_bytes of `code` in its bucket, float32 messages: above
+    SMEM_LIMIT_BYTES the flooding kernel cannot run it."""
+    lay = code.layout
+    m, n, E = lay.mb * lay.Z, lay.nb * lay.Z, lay.E
+    return flood_smem_bytes(lay.Z, lay.mb, lay.nb, E,
+                            choose_bucket(lay.max_row_deg, m, n, E * lay.Z))
+
+
 def choose_bucket(max_row_deg: int, m: int, n: int, r_slots: int) -> int:
     """kMaxDeg of the instantiation that runs a code: the smallest bucket
     that holds its largest row and one check per thread, else 0."""

@@ -282,16 +282,32 @@ def run_ber(
     step_log: str | None = None,
     adapt=None,
     crc=None,
+    mesh=None,
     *,
     device,
 ) -> list[SnrResult]:
-    """Frame-error-targeted Eb/N0 sweep on one device.
+    """Frame-error-targeted Eb/N0 sweep on one device, or over the ranks
+    of `mesh` (``dist/mesh.py::run_ber_sharded``: `batch` frames a rank,
+    on the mesh's device, which `device` must name: its type, and its
+    index where `device` gives one).
 
     device='cuda' raises when no card is present; it never runs on the
     CPU instead.  step_log: path for per-call JSONL records (snr,
     cumulative frames / errors, mean iters, wall time, info bits/s).
     adapt / crc: rate adaptation and outer CRC (see BatchFn)."""
     device = resolve_device(device)
+    if mesh is not None:
+        from tpu_ldpc_torch.dist.mesh import run_ber_sharded
+
+        if mesh.device.type != device.type or device.index not in (
+                None, mesh.device.index):
+            raise ValueError(f"mesh computes on {mesh.device}, run_ber was "
+                             f"asked for {device}")
+        return run_ber_sharded(
+            code, ebn0_grid, cfg, batch, target_frame_errors, max_frames,
+            seed, mesh, progress=progress, state=state,
+            steps_per_call=steps_per_call, step_log=step_log, adapt=adapt,
+            crc=crc)
     if steps_per_call is None:
         steps_per_call = default_steps_per_call(device)
     step = build_mc_step(code, cfg, batch, steps_per_call, adapt, crc,

@@ -3,7 +3,8 @@
 
 Bisection on Eb/N0, relying on FER being monotone non-increasing in
 Eb/N0 (up to Monte-Carlo noise, which the frame-error targets bound).
-Every probe is one frame-error-targeted ``run_ber`` point on `device`;
+Every probe is one frame-error-targeted ``run_ber`` point on `device`
+(over the ranks of `mesh` when one is given);
 the decoder is built once and reused by every probe (``run_ber`` caches
 its MC step by configuration).
 """
@@ -35,6 +36,7 @@ def find_ebn0_at_fer(
     max_frames: int | None = None,
     batch: int = 256,
     seed: int = 0,
+    mesh=None,
     adapt=None,
     progress: bool = False,
     *,
@@ -49,7 +51,8 @@ def find_ebn0_at_fer(
     >= fer(hi); `converged` is False when the target lies outside the
     initial range (the nearest endpoint is returned).  adapt: rate
     adaptation of every probe (``channel.adapt.RateAdapt``), Eb/N0
-    referenced to its effective rate.
+    referenced to its effective rate.  mesh: probes run over its ranks
+    (``run_ber``'s mesh).
     """
     if not 0.0 < target_fer < 1.0:
         raise ValueError(f"target_fer must be in (0, 1), got {target_fer}")
@@ -61,7 +64,8 @@ def find_ebn0_at_fer(
         res = run_ber(
             code, [ebn0], cfg=cfg, batch=batch,
             target_frame_errors=target_frame_errors,
-            max_frames=max_frames, seed=seed, adapt=adapt, device=device,
+            max_frames=max_frames, seed=seed, mesh=mesh, adapt=adapt,
+            device=device,
         )[0]
         probes.append(res)
         if progress:
