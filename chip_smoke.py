@@ -34,10 +34,14 @@ a family cell without a committed table); slice 10: distribution
 single-device counters, two gloo ranks sharing the card against the
 replay of their streams, the ring and partitioned decoders against the
 plain decoder, build_decode_fn's routing, the torchrun launcher against
-the single-process CLI, --profile) -- times kernels and plain
-versions with CUDA events, and prints:
+the single-process CLI, --profile); slice 11: the throughput CLI
+(tpu_ldpc_torch.cli.bench.main in this process: the headline, layered,
+ET on, sumproduct-fast, two-phase and the headline under --profile, its
+time against phase 5's K1 time) and the registry validation capped at
+one chunk a cell -- times kernels and plain versions with CUDA events,
+and prints:
 
-  - one line per phase;
+  - one line per phase, and each [slice11] record;
   - the card's name and power limit (nvidia-smi);
   - {"kernels": [...]}: per kernel its launches on the main paths, the
     largest |kernel - plain| seen (0: bit-exact) and, for sum-product,
@@ -155,6 +159,25 @@ CODEGEN_ARGV = ["--family", "custom", "--mb", "4", "--nb", "8", "--z", "16",
                 "--pexit", "15", "--anneal", "200", "--ace", "--threshold",
                 "--dmin", "20"]
 NEW_CELL = ("wimax", "3/4", 32)
+# slice 11: the throughput CLI (tpu_ldpc_torch.cli.bench.main, in this
+# process) on the judged code at b=BATCH: (label, flags, the kernels its
+# decodes launch); (f) is (a) under --profile.  (a)'s ms_per_batch must
+# lie within BENCH_K1_BAND of phase 5's K1 time (CUDA events, same run)
+SLICE11_BENCH = (
+    ("a", [], {"minsum_flood"}),
+    ("b", ["--schedule", "layered", "--iters", "25"], {"minsum_layered"}),
+    ("c", ["--early-stop"], {"minsum_flood"}),
+    ("d", ["--algo", "sumproduct-fast"], {"spfast_flood"}),
+    ("e", ["--impl", "twophase", "--schedule", "layered"],
+     {"minsum_layered"}),
+    ("f", [], {"minsum_flood"}),
+)
+BENCH_KEYS = {"code", "n", "k", "ebn0_db", "algo", "iters", "schedule",
+              "early_stop", "batch", "backend", "n_devices", "ms_per_batch",
+              "info_bits_per_s", "gbps", "device_kind"}
+BENCH_K1_BAND = 0.10
+REGISTRY_SCRIPT = os.path.join(REPO, "scripts",
+                               "torch_registry_validation.py")
 # the least time the card could take: device memory 3.35 TB/s, FP32
 # outside the tensor cores 67 TFLOP/s (H100 SXM datasheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -1363,6 +1386,97 @@ def _slice10_times(dev, res, smi):
     print(f"[5 slice10] wall {time.perf_counter() - t0:.2f} s")
 
 
+def _strict_json(line):
+    def refuse(constant):
+        raise ValueError(f"non-strict JSON constant {constant}")
+
+    return json.loads(line, parse_constant=refuse)
+
+
+def _slice11_path(dev, smi):
+    """The throughput CLI in this process: SLICE11_BENCH's records, each
+    one JSON line equal to the record main returns, its info bits/s batch
+    * k over its time, its decodes on its own kernels alone; (f)'s trace
+    holds device events of bp_flood_kernel.  Then the registry validation
+    (scripts/torch_registry_validation.py) capped at one chunk a cell:
+    K1 bit for bit with the plain decoder on all 61 cells.  Returns the
+    records by label."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+
+    from tpu_ldpc_torch.cli import bench
+    from tpu_ldpc_torch.decode.cuda_bp import LAUNCHES
+
+    t0 = time.perf_counter()
+    trace_dir = os.path.join(OUT_DIR, "slice11_profile")
+    records = {}
+    print(f"[slice11] nvidia-smi: {smi}")
+    for label, flags, own in SLICE11_BENCH:
+        argv = ["--device", "cuda", "--batch", str(BATCH), *flags, "--json"]
+        if label == "f":
+            argv += ["--profile", trace_dir]
+        before = dict(LAUNCHES)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rec = bench.main(argv)
+        lines = out.getvalue().splitlines()
+        if len(lines) != 1 or _strict_json(lines[0]) != rec:
+            raise AssertionError(f"({label}): stdout is not one JSON line "
+                                 f"equal to the record: {lines}")
+        ms = rec["ms_per_batch"]
+        if not (set(rec) == BENCH_KEYS and math.isfinite(ms) and ms > 0
+                and math.isclose(rec["info_bits_per_s"],
+                                 rec["batch"] * rec["k"] / (ms / 1e3),
+                                 rel_tol=1e-12)
+                and rec["device_kind"] == torch.cuda.get_device_name(0)):
+            raise AssertionError(f"({label}): record {rec}")
+        ran = {kname for kname, n in LAUNCHES.items()
+               if n > before[kname] and not kname.endswith("_normalized")}
+        if ran != own:
+            raise AssertionError(f"({label}) launched {ran}, not {own}")
+        records[label] = rec
+        print(f"[slice11] ({label}) {lines[0]}")
+    with open(os.path.join(trace_dir, "trace_rank0.json")) as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "bp_flood_kernel" in e.get("name", "")]
+    if not k1:
+        raise AssertionError("(f): no device event of bp_flood_kernel in "
+                             "the trace")
+    print(f"[slice11] (f) trace: {len(k1)} device events of "
+          f"bp_flood_kernel, mean {sum(e['dur'] for e in k1) / len(k1):.2f}"
+          " us (profiler)")
+
+    spec = importlib.util.spec_from_file_location("torch_registry_validation",
+                                                  REGISTRY_SCRIPT)
+    reg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reg)
+    reg_dir = os.path.join(OUT_DIR, "slice11_registry")
+    os.makedirs(reg_dir, exist_ok=True)
+    for work, name, punctured in (
+            (list(reg.cells()), reg.OUT_NAMES[0], False),
+            (list(reg.nr_operating_cells()), reg.OUT_NAMES[1], True)):
+        t1 = time.perf_counter()
+        rows, n_fail, *_ = reg.run_pass(work, os.path.join(reg_dir, name),
+                                        punctured, dev, max_chunks=1,
+                                        log=lambda line: None)
+        if n_fail or len(rows) != len(work) or not all(
+                r["bitexact"] is True and r["frames"] == reg.CHUNK
+                for r in rows.values()):
+            raise AssertionError(f"registry capped, {name}: "
+                                 f"{[r for r in rows.values()]}")
+        errors = sum(round(r["fer"] * r["frames"]) for r in rows.values())
+        print(f"[slice11] registry capped at one chunk a cell, {name}: K1 "
+              f"== plain (bits, ok, iters_used) on all {len(rows)} cells, "
+              f"{len(rows) * reg.CHUNK} frames, {errors} frame errors, "
+              f"wall {time.perf_counter() - t1:.2f} s")
+    print(f"[slice11] wall {time.perf_counter() - t0:.2f} s")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -1759,6 +1873,7 @@ def main() -> int:
 
     twophase = {}
     slice10 = {}
+    slice11 = {}
 
     def slice2_path():
         """Layered min-sum, exact sum-product and two-phase decoding:
@@ -2077,7 +2192,10 @@ def main() -> int:
                                  dev, chunk0, probe),
                               (KERNELS[0], KERNELS[2])),
                              ("slice 10", lambda: slice10.update(
-                                 ranks=_slice10_path(dev)), KERNELS[:1])):
+                                 ranks=_slice10_path(dev)), KERNELS[:1]),
+                             ("slice 11", lambda: slice11.update(
+                                 _slice11_path(dev, smi)),
+                              (KERNELS[0], KERNELS[1], KERNELS[4]))):
         t_phase = time.perf_counter()
         reset_launches()
         path()
@@ -2271,6 +2389,15 @@ def main() -> int:
           f"{sum(ts['generator']) / 2:.4f} ms {ts['generator']}, "
           f"dual_diagonal (XOR of rolls) "
           f"{sum(ts['dual_diagonal']) / 2:.4f} ms {ts['dual_diagonal']}")
+
+    # slice 11: the CLI's timer against this phase's CUDA events on K1
+    a_ms, k1_ms = slice11["a"]["ms_per_batch"], k_times["minsum_flood"][0]
+    print(f"[slice11] (a) {a_ms:.4f} ms/batch by the CLI's timer against "
+          f"phase 5's K1 {k1_ms:.4f} ms/batch: ratio {a_ms / k1_ms:.4f} "
+          f"(band {BENCH_K1_BAND}); {smi}")
+    if abs(a_ms / k1_ms - 1) > BENCH_K1_BAND:
+        raise AssertionError(f"(a) {a_ms} ms is not within "
+                             f"{BENCH_K1_BAND:.0%} of K1's {k1_ms} ms")
 
     _slice8_times(dev)
     _slice9_times(dev, probe, smi)

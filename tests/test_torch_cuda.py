@@ -725,3 +725,26 @@ def test_world_one_nccl_run_ber_equals_run_ber(cuda):
             assert g == w
     finally:
         dist.destroy_process_group()
+
+
+def test_bench_decode_judged_b4096(cuda, capsys):
+    """The throughput CLI's timed path on the card: the judged code at
+    b=4096 (flooding min-sum, 50 iterations, ET off) launches K1 and
+    gives a finite, positive time; the CLI's record names the card."""
+    import json
+    import math
+
+    from tpu_ldpc_torch.cli.bench import bench_decode, main
+
+    code = LdpcCode.judged()
+    before = LAUNCHES["minsum_flood"]
+    dt, thpt = bench_decode(code, batch=4096, reps=5, device="cuda")
+    assert LAUNCHES["minsum_flood"] > before
+    assert math.isfinite(dt) and dt > 0
+    assert thpt == 4096 * code.k / dt
+    capsys.readouterr()
+    rec = main(["--json", "--reps", "5"])
+    assert json.loads(capsys.readouterr().out) == rec
+    assert rec["backend"] == "cuda" and rec["n_devices"] >= 1
+    assert rec["device_kind"] == torch.cuda.get_device_name()
+    assert math.isfinite(rec["ms_per_batch"]) and rec["ms_per_batch"] > 0

@@ -187,3 +187,36 @@ def test_awgn_llrs_follow_the_generator():
     # all-zero codeword: llr = (2/s2)(1 + sigma n): mean 2/s2, std 2/sigma
     assert abs(a.mean().item() - 2 / sigma2) < 0.05 * 2 / sigma2
     assert abs(a.std().item() - 2 / np.sqrt(sigma2)) < 0.05 * 2 / np.sqrt(sigma2)
+
+
+@pytest.mark.parametrize("method", ["generator", "dual_diagonal"])
+@pytest.mark.parametrize("cell", [("judged",), ("wifi", "2/3", 27)],
+                         ids=["judged", "wifi_r23_z27"])
+def test_encode_matches_jax(cell, method):
+    """encode(code, u, method) equals tpu_ldpc.encode.encode bit for bit."""
+    from tpu_ldpc.encode import encode as jax_encode
+    from tpu_ldpc_torch.encode import encode
+
+    ref = (JaxLdpcCode.judged() if cell[0] == "judged"
+           else JaxLdpcCode.from_family(*cell))
+    code = twin(ref)
+    u = np.random.default_rng(8).integers(0, 2, (33, code.k)).astype(np.uint8)
+    want = np.asarray(jax_encode(ref, u, method))
+    got = encode(code, u, method, device="cpu")
+    assert got.dtype == torch.uint8 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), want)
+    # a tensor stays on its own device
+    assert torch.equal(encode(code, torch.from_numpy(u), method), got)
+
+
+def test_encode_numpy_input_asks_for_the_card(monkeypatch):
+    from tpu_ldpc_torch.encode import encode
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    code = toy_code()
+    u = np.zeros((2, code.k), np.uint8)
+    with pytest.raises(RuntimeError, match="is_available"):
+        encode(code, u)
+    with pytest.raises(RuntimeError, match="is_available"):
+        encode(code, torch.from_numpy(u), device="cuda")
+    assert not encode(code, u, device="cpu").any()

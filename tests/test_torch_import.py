@@ -35,7 +35,8 @@ PORT_MODULES = (
     "tpu_ldpc_torch.report.plots", "tpu_ldpc_torch.dist",
     "tpu_ldpc_torch.dist.mesh", "tpu_ldpc_torch.dist.grid",
     "tpu_ldpc_torch.dist.partitioned", "tpu_ldpc_torch.dist.ring",
-    "tpu_ldpc_torch.cli.launch",
+    "tpu_ldpc_torch.cli.launch", "tpu_ldpc_torch.cli.bench",
+    "tpu_ldpc_torch.benchcore",
 )
 
 
@@ -74,6 +75,7 @@ def test_no_port_module_imports_the_jax_package():
                                           "*.py"), recursive=True))
     paths += [os.path.join(REPO, "chip_smoke.py"),
               os.path.join(REPO, "scripts", "torch_ab_time.py"),
+              os.path.join(REPO, "scripts", "torch_registry_validation.py"),
               os.path.join(REPO, "tests", "torch_dist_worker.py")]
     for mod in PORT_MODULES:  # every listed module is scanned
         rel = mod.replace(".", os.sep)
@@ -87,7 +89,9 @@ def test_no_port_module_imports_the_jax_package():
 
 
 def test_chip_scripts_import_only_the_port():
-    for path in ("chip_smoke.py", "tpu_ldpc_torch/cli/profile_mc.py"):
+    for path in ("chip_smoke.py", "tpu_ldpc_torch/cli/profile_mc.py",
+                 "tpu_ldpc_torch/cli/bench.py",
+                 "scripts/torch_registry_validation.py"):
         mods = list(_imported_modules(os.path.join(REPO, path)))
         assert any(m.startswith("tpu_ldpc_torch") for m in mods), path
         bad = [m for m in mods
@@ -97,11 +101,13 @@ def test_chip_scripts_import_only_the_port():
 
 def test_chip_scripts_fail_without_a_card():
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
-    for argv in (["chip_smoke.py"], ["-m", "tpu_ldpc_torch.cli.profile_mc"]):
+    for argv in (["chip_smoke.py"], ["-m", "tpu_ldpc_torch.cli.profile_mc"],
+                 ["-m", "tpu_ldpc_torch.cli.bench", "--json"]):
         out = subprocess.run([sys.executable, *argv], cwd=REPO, env=env,
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 1, (argv, out.stderr)
         assert '"ok"' not in out.stdout, argv
+        assert "ms_per_batch" not in out.stdout, argv
 
 
 def test_decode_numpy_input_asks_for_the_card(monkeypatch):

@@ -115,6 +115,114 @@ def test_resume_bit_identical(tmp_path):
     assert full.frame_errors >= 40
 
 
+def flip_bits(gen, bits, ok, iters_used):
+    """Fault: flip each decoded bit with probability 0.05."""
+    flip = torch.rand(bits.shape, generator=gen, device=bits.device) < 0.05
+    return bits ^ flip.to(torch.uint8), ok, iters_used
+
+
+def with_fault_hook(hook, build):
+    """build() under sim/mc.py's _FAULT_HOOK, the step caches cleared
+    before and after (the hook is read when a BatchFn is built)."""
+    import importlib
+
+    mc = importlib.import_module("tpu_ldpc_torch.sim.mc")
+    mesh = importlib.import_module("tpu_ldpc_torch.dist.mesh")
+    mc._FAULT_HOOK = hook
+    mc._build_mc_step.cache_clear()
+    mesh.build_sharded_mc_step.cache_clear()
+    try:
+        return build()
+    finally:
+        mc._FAULT_HOOK = None
+        mc._build_mc_step.cache_clear()
+        mesh.build_sharded_mc_step.cache_clear()
+
+
+@pytest.mark.parametrize("where", ["single", "sharded_world1"])
+def test_fault_injection_detected(where, monkeypatch):
+    """Port of tests/test_ber.py::test_fault_injection_detected: a
+    corrupted decode shows in the counters (frame errors and undetected
+    errors rise; the accounting stays consistent), on the single-device
+    step and on the sharded step of a world-1 gloo group."""
+    import torch.distributed as dist
+
+    from tpu_ldpc_torch.dist.mesh import (
+        build_sharded_mc_step, init_distributed, make_mesh)
+
+    code = toy_code()
+    cfg = DecodeCfg(algo="minsum", iters=20)
+    mesh = None
+    if where == "sharded_world1":
+        for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+            monkeypatch.delenv(var, raising=False)
+        init_distributed(device="cpu")
+        mesh = make_mesh()
+
+    def run_step():
+        if mesh is None:
+            step = build_mc_step(code, cfg, 64, device="cpu")
+        else:
+            step = build_sharded_mc_step(code, cfg, 64, mesh)
+        return step(1, 0, 8.0, 0).numpy()
+
+    try:
+        clean = run_step()
+        faulty = with_fault_hook(flip_bits, run_step)
+        again = run_step()
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+    np.testing.assert_array_equal(again, clean)  # the hook is gone
+    assert faulty[0] == clean[0] == 64
+    assert faulty[1] > clean[1]          # bit errors jump
+    assert faulty[2] > clean[2]          # frame errors jump
+    assert faulty[4] >= clean[4]         # corrupted-but-"ok" frames counted
+    assert faulty[2] <= faulty[3] + faulty[4]  # accounting invariant
+
+
+def test_crc_gating_catches_injected_fault():
+    """Port of tests/test_crc.py::test_crc_gating_catches_injected_fault:
+    one payload bit flipped in every decoded frame; the outer CRC reports
+    every frame as detected (no false ACKs)."""
+    code = twin(JaxLdpcCode.from_base_graph(
+        make_base_graph(4, 12, 4, seed=5), 8, "crc_toy"))  # n=96, k=64
+    cfg = DecodeCfg(algo="minsum", iters=20)
+
+    def flip_hook(gen, bits, ok, iters_used):
+        bits = bits.clone()
+        bits[:, 3] = 1 - bits[:, 3]
+        return bits, ok, iters_used
+
+    counters = with_fault_hook(flip_hook, lambda: build_mc_step(
+        code, cfg, 64, 1, None, "crc16", device="cpu")(0, 0, 8.0, 0))
+    frames, _, frame_errors, detected, undetected, _ = counters.tolist()
+    assert frame_errors == frames == 64  # every payload genie-wrong
+    assert detected == frames            # ...and every one CRC-detected
+    assert undetected == 0
+
+
+def test_fault_hook_argument_leaves_the_draw():
+    """fault_hook= of build_batch_fn: the hook sees the batch's own
+    generator after the draw, so u and noise are the hook-free batch's;
+    the identity hook leaves the counters unchanged."""
+    code = toy_code()
+    cfg = DecodeCfg(iters=10)
+    seen = []
+
+    def identity(gen, bits, ok, iters_used):
+        seen.append(gen)
+        return bits, ok, iters_used
+
+    plain = build_batch_fn(code, cfg, 32, device="cpu")
+    hooked = build_batch_fn(code, cfg, 32, device="cpu", fault_hook=identity)
+    assert plain.fault_hook is None and hooked.fault_hook is identity
+    gens = [torch.Generator().manual_seed(5) for _ in range(2)]
+    assert torch.equal(plain(gens[0], 2.0), hooked(gens[1], 2.0))
+    assert seen == [gens[1]]
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
 def test_jax_checkpoint_loads_in_port(tmp_path):
     ckpt = str(tmp_path / "jax_sweep.json")
     res = JaxSnrResult(ebn0_db=2.0, frames=4096, bit_errors=77,

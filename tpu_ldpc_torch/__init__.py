@@ -21,7 +21,8 @@ hard-decision and windowed decoders; slice 9 code construction and
 analysis (annealing, PEG, PEXIT, d_min bounds, the trapping-set census,
 the construction CLI); slice 10 distribution over ranks (the sharded MC
 step, the grid-sharded sweep, the partitioned and ring decoders, the
-torchrun launcher):
+torchrun launcher); slice 11 the throughput benchmark CLI and its timer,
+the MC step's fault-injection hook and ``encode()``:
 
 - ``codes``: LdpcCode, the registry, the Tanner layout, GF(2) algebra,
   construction and analysis (host NumPy);
@@ -37,7 +38,9 @@ torchrun launcher):
   CUDA decode kernels for sm_90a;
 - ``decode.twophase``, ``decode.knobs``: two-phase decoding;
 - ``decode.api``, ``sim`` (``run_ber``, ``find_ebn0_at_fer``,
-  ``harq.run_irharq``), ``cli``, ``report``: the public entry points;
+  ``harq.run_irharq``), ``cli`` (``cli.bench``: throughput), ``report``:
+  the public entry points;
+- ``benchcore``: the card's throughput timer (CUDA events);
 - ``dist``: process groups (``init_distributed``, ``make_mesh``), the
   sharded MC step, the grid sweep, the partitioned and ring decoders.
 

@@ -54,16 +54,26 @@ _NOT_PORTED_IMPL = {
 }
 
 
-def build_decode_fn(code: LdpcCode, cfg, device, mesh=None):
+def build_decode_fn(code: LdpcCode, cfg, device, mesh=None, *,
+                    early_stop: bool = True):
     """cfg: sim.mc.DecodeCfg (or anything with the same fields).
 
     Returns fn(llr (batch, n) float32 on `device`) -> (bits, ok, iters_used)
-    with early termination on.  mesh: a ``dist.mesh.Mesh``; a code the
+    with early termination on; early_stop=False runs every iteration
+    (the throughput benchmark's fixed-work point).  Only the flooding and
+    layered BP decoders of one device take it, and impl='twophase',
+    early-terminating by construction, ignores it as the JAX package's
+    benchmark does.  mesh: a ``dist.mesh.Mesh``; a code the
     flooding kernel cannot hold then decodes on the ring or the
     partitioned decoder (module docstring), which every rank of the mesh
     calls with the same LLRs."""
     device = resolve_device(device)
     impl = getattr(cfg, "impl", "auto")
+    if not early_stop and (cfg.algo in ("bitflip", "wbf")
+                           or cfg.schedule == "windowed"
+                           or mesh is not None):
+        raise ValueError("early_stop=False applies only to the flooding / "
+                         "layered BP decoders of one device")
     # the one set of quantization keywords every decoder below takes
     quant = dict(quant_bits=getattr(cfg, "quant_bits", None),
                  quant_step=getattr(cfg, "quant_step", 0.5),
@@ -109,7 +119,7 @@ def build_decode_fn(code: LdpcCode, cfg, device, mesh=None):
             code, mesh, algo=cfg.algo, iters=cfg.iters, alpha=cfg.alpha,
             beta=cfg.beta)
     else:
-        run = _build_bp(code, cfg, device, impl, quant)
+        run = _build_bp(code, cfg, device, impl, quant, early_stop)
 
     def decode_fn(llr: torch.Tensor):
         if llr.device.type != device.type:
@@ -121,7 +131,8 @@ def build_decode_fn(code: LdpcCode, cfg, device, mesh=None):
     return decode_fn
 
 
-def _build_bp(code: LdpcCode, cfg, device, impl: str, quant: dict):
+def _build_bp(code: LdpcCode, cfg, device, impl: str, quant: dict,
+              early_stop: bool):
     """The soft BP decoder of `cfg.impl` (flooding or layered)."""
     if impl in _NOT_PORTED_IMPL:
         raise NotImplementedError(
@@ -149,15 +160,15 @@ def _build_bp(code: LdpcCode, cfg, device, impl: str, quant: dict):
         from tpu_ldpc_torch.decode.reference import build_decoder
 
         return build_decoder(code, cfg.algo, cfg.iters, cfg.alpha,
-                             cfg.beta, cfg.schedule, True, **quant)
+                             cfg.beta, cfg.schedule, early_stop, **quant)
     # the code's own coordinates, unlike the JAX package's TPU path
     # (build_pallas_decoder's default): the outputs are the same, and on
     # the H100 shift normalization measured slower (PERF.md, K9)
     from tpu_ldpc_torch.decode.cuda_bp import build_cuda_decoder
 
     return build_cuda_decoder(code, cfg.algo, cfg.iters, cfg.alpha,
-                              cfg.beta, cfg.schedule, True, normalize=False,
-                              **quant)
+                              cfg.beta, cfg.schedule, early_stop,
+                              normalize=False, **quant)
 
 
 def decode(

@@ -3,5 +3,6 @@ the general pivot path (L1)."""
 
 from tpu_ldpc_torch.encode.encoder import (  # noqa: F401
     build_encoder,
+    encode,
     select_encoder,
 )

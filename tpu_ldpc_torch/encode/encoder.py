@@ -129,6 +129,20 @@ def build_encoder(code: LdpcCode, method: str = "generator", *, device):
     return _build_encoder(code, method, resolve_device(device))
 
 
+def encode(code: LdpcCode, u, method: str = "generator", device=None):
+    """Codewords (batch, n) uint8 of info bits u (batch, k).
+
+    device=None: a tensor stays on its own device; NumPy input goes to
+    the card ('cuda', which raises without one) -- pass device='cpu' for
+    the CPU.  A given device moves u there (decode()'s rule)."""
+    if device is None:
+        device = u.device if isinstance(u, torch.Tensor) else "cuda"
+    device = resolve_device(device)
+    if not isinstance(u, torch.Tensor):
+        u = torch.as_tensor(np.asarray(u, dtype=np.uint8))
+    return build_encoder(code, method, device=device)(u.to(device))
+
+
 def select_encoder(code: LdpcCode, *, device):
     """The generator path when the trailing parity block is invertible,
     else the pivot path.  Returns (encode_fn, k, info_cols): k is the true

@@ -22,6 +22,10 @@ block is [payload | crc(payload)], errors count over the payload, and
 detected / undetected mean CRC failed / CRC passed on a wrong payload.
 Without either, a batch draws u (batch, k) and then the noise from its
 generator: the regroup and resume identities rest on that order.
+
+A test-only fault-injection hook (``_FAULT_HOOK``, or ``fault_hook=`` of
+``BatchFn``) corrupts the decoder's outputs so that tests can check that
+the counters catch a faulty decode.
 """
 
 from __future__ import annotations
@@ -136,6 +140,15 @@ def batch_generator(seed: int, snr_idx: int, batch_ctr: int,
     return gen
 
 
+# test-only fault-injection hook: called as
+# hook(generator, bits, ok, iters_used) -> (bits, ok, iters_used) right
+# after the decode.  `generator` is the batch's own (None when counting
+# given inputs), drawn from only after `draw`, so the batch's u and noise
+# do not change.  Read when a BatchFn is built: clear _build_mc_step's and
+# dist.mesh.build_sharded_mc_step's caches after changing it.
+_FAULT_HOOK = None
+
+
 class BatchFn:
     """One Monte-Carlo batch: draw (u, noise), then count.
 
@@ -146,11 +159,14 @@ class BatchFn:
     adapt: ``channel.adapt.RateAdapt`` or None.  crc: a ``codes/crc.py``
     name or CrcSpec, or None; with a CRC, `draw` attaches it to a random
     payload.  A CRC together with shortening raises ValueError (the CRC
-    would span frozen bits); puncturing composes."""
+    would span frozen bits); puncturing composes.  fault_hook: see
+    ``_FAULT_HOOK`` (None takes the module's)."""
 
     def __init__(self, code: LdpcCode, cfg: DecodeCfg, batch: int, device,
-                 adapt=None, crc=None):
+                 adapt=None, crc=None, fault_hook=None):
         self.device = resolve_device(device)
+        self.fault_hook = (_FAULT_HOOK if fault_hook is None
+                           else fault_hook)
         self.batch, self.n = batch, code.n
         self.encode_fn, k, info_cols = select_encoder(
             code, device=self.device)
@@ -199,8 +215,9 @@ class BatchFn:
         return u, noise
 
     def batch_counters(self, u: torch.Tensor, noise: torch.Tensor,
-                       ebn0_db: float) -> torch.Tensor:
-        """(6,) int64 counters (COUNTER_FIELDS order) on the device."""
+                       ebn0_db: float, generator=None) -> torch.Tensor:
+        """(6,) int64 counters (COUNTER_FIELDS order) on the device;
+        `generator` goes to the fault hook alone."""
         if self.active_u is not None:
             u = u * self.active_u  # shortened info bits are zeros
         c = self.encode_fn(u)
@@ -210,6 +227,9 @@ class BatchFn:
         else:
             llr = llrs_from_noise(c, noise, ebn0_db, self.rate)
         bits, ok, iters_used = self.decode_fn(llr)
+        if self.fault_hook is not None:
+            bits, ok, iters_used = self.fault_hook(generator, bits, ok,
+                                                   iters_used)
         info = (bits[:, :self.k_info] if self.info_cols is None
                 else bits[:, self.info_cols])
         wrong = info != u
@@ -231,12 +251,13 @@ class BatchFn:
         ])
 
     def __call__(self, generator: torch.Generator, ebn0_db: float):
-        return self.batch_counters(*self.draw(generator), ebn0_db)
+        return self.batch_counters(*self.draw(generator), ebn0_db,
+                                   generator)
 
 
 def build_batch_fn(code: LdpcCode, cfg: DecodeCfg, batch: int, adapt=None,
-                   crc=None, *, device) -> BatchFn:
-    return BatchFn(code, cfg, batch, device, adapt, crc)
+                   crc=None, *, device, fault_hook=None) -> BatchFn:
+    return BatchFn(code, cfg, batch, device, adapt, crc, fault_hook)
 
 
 @functools.lru_cache(maxsize=64)
