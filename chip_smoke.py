@@ -38,10 +38,14 @@ the single-process CLI, --profile); slice 11: the throughput CLI
 (tpu_ldpc_torch.cli.bench.main in this process: the headline, layered,
 ET on, sumproduct-fast, two-phase and the headline under --profile, its
 time against phase 5's K1 time) and the registry validation capped at
-one chunk a cell -- times kernels and plain versions with CUDA events,
-and prints:
+one chunk a cell; slice 12: the registry tools (the two-phase knob
+tuner's measurement of four cells, two-phase against single-pass ET on
+its probe, the judged ET-off times against phase 5's, measure_at over
+buffers rebuilt on the card against measure, the edge-rate audit over those rows, one IR-HARQ point with its
+stage times and delivered Gb/s) -- times kernels and plain versions with
+CUDA events, and prints:
 
-  - one line per phase, and each [slice11] record;
+  - one line per phase, and each [slice11] and [slice12] record;
   - the card's name and power limit (nvidia-smi);
   - {"kernels": [...]}: per kernel its launches on the main paths, the
     largest |kernel - plain| seen (0: bit-exact) and, for sum-product,
@@ -178,6 +182,19 @@ BENCH_KEYS = {"code", "n", "k", "ebn0_db", "algo", "iters", "schedule",
 BENCH_K1_BAND = 0.10
 REGISTRY_SCRIPT = os.path.join(REPO, "scripts",
                                "torch_registry_validation.py")
+# slice 12: the registry tools (scripts/torch_tune_registry_knobs.py,
+# torch_roofline_audit.py, torch_irharq.py) in this process on four cells
+# of the tuner (the judged code; Z not a multiple of 8 with rows of degree
+# ~20; a wimax lift; the flooding two-pass form) and one HARQ point.  The
+# judged code's layered-25 and flooding-50 ET-off times must lie within
+# SLICE12_BAND of phase 5's K2 and K1 times, and measure_at at a timer's
+# own point, its buffers rebuilt after another point's, within
+# SLICE12_BAND of measure.
+SLICE12_CELLS = ("qc1024_r12", "wifi_r56_z81", "wimax_r12_z96",
+                 "nr1_r12_z64")
+SLICE12_REPS = 20
+SLICE12_HARQ = (1, 3.0)  # (ladder, Eb/N0)
+SLICE12_BAND = 0.10
 # the least time the card could take: device memory 3.35 TB/s, FP32
 # outside the tensor cores 67 TFLOP/s (H100 SXM datasheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -1477,6 +1494,131 @@ def _slice11_path(dev, smi):
     return records
 
 
+def _load_script(name):
+    """scripts/<name>.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "scripts", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _slice12_path(dev, smi):
+    """The registry tools in this process: the tuner's measurement of
+    SLICE12_CELLS (tune_phase1_iters, two-phase and single-pass layered ET
+    on the same buffers, layered-25 and flooding-50 ET off; two-phase ==
+    single-pass ET on the seed-11 probe), measure_at against measure on
+    the judged timer (its buffers first rebuilt on the card and held
+    equal to the timer's own bit for bit), the audit's fits over those rows, and one IR-HARQ
+    point of the HARQ twin (stage FERs equal a second run_irharq of the
+    same seed).  Returns the tuner's rows by cell and the timer check."""
+    import torch
+
+    from tpu_ldpc_torch.benchcore import make_timer
+    from tpu_ldpc_torch.channel.awgn import noise_sigma2
+    from tpu_ldpc_torch.codes.nrlike import KB, KB2
+    from tpu_ldpc_torch.decode.cuda_bp import build_cuda_decoder
+    from tpu_ldpc_torch.sim.harq import run_irharq
+
+    t0 = time.perf_counter()
+    tune = _load_script("torch_tune_registry_knobs")
+    audit = _load_script("torch_roofline_audit")
+    harq = _load_script("torch_irharq")
+    print(f"[slice12] nvidia-smi: {smi}")
+    cells = {code.name: (code, ebn0) for code, ebn0 in tune.cells()}
+    rows = {}
+    for cname in SLICE12_CELLS:
+        code, ebn0 = cells[cname]
+        row = tune.measure_cell(code, ebn0, dev, BATCH, SLICE12_REPS)
+        if "skipped" in row or not row["probe_twophase_equals_single_et"]:
+            raise AssertionError(f"[slice12] {cname}: {row}")
+        rows[cname] = row
+        print(f"[slice12] {cname} {ebn0} dB b={BATCH} K={row['K']} budget="
+              f"{row['budget']} n_unconv(seed 11)={row['n_unconv_seed11']}: "
+              f"two-phase == single-pass ET (bits, ok, iters_used); ms a "
+              f"batch: two-phase {row['layered_twophase_ms']:.4f}, single "
+              f"ET {row['single_et_ms']:.4f} (ratio "
+              f"{row['twophase_over_single_et']:.4f}), layered 25 ET off "
+              f"{row['layered_etoff_ms']:.4f}, flooding 50 ET off "
+              f"{row['flood_etoff_ms']:.4f}; wall {row['wall_s']} s")
+
+    judged, ebn0 = cells["qc1024_r12"]
+    timer = make_timer(judged, BATCH, ebn0, device=dev)
+    k1 = build_cuda_decoder(judged, "minsum", 50, 0.75, 0.0, "flooding",
+                            False, normalize=False)
+    # move the timer to the HARQ point's channel and back, so that
+    # measure_at below times buffers rebuilt on the card at the timer's
+    # own point; they must equal the timer's own LLRs bit for bit
+    bg, harq_ebn0 = SLICE12_HARQ
+    sigma2 = noise_sigma2(harq_ebn0, harq.first_rate(
+        KB if bg == 1 else KB2, harq.LADDERS[bg]["stage_m"], harq.Z))
+    away = timer.buffers_at(2.0 / sigma2, math.sqrt(sigma2))
+    rebuilt = timer.buffers_at(timer.scale, timer.sig)
+    if any(torch.equal(a, b) for a, b in zip(away, timer.llrs)) or any(
+            a is b for a, b in zip(rebuilt, timer.llrs)) or not all(
+            torch.equal(a, b) for a, b in zip(rebuilt, timer.llrs)):
+        raise AssertionError("[slice12] buffers_at at the timer's point "
+                             "does not rebuild its LLRs bit for bit")
+    print(f"[slice12] judged timer: {len(rebuilt)} buffers rebuilt on the "
+          f"card at its own point (after the HARQ point's) == its LLRs bit "
+          f"for bit")
+    own = [timer.measure(k1, SLICE12_REPS)["median_s"],
+           timer.measure_at(k1, timer.scale, timer.sig,
+                            SLICE12_REPS)["median_s"]]
+    own += [timer.measure_at(k1, timer.scale, timer.sig,
+                             SLICE12_REPS)["median_s"],
+            timer.measure(k1, SLICE12_REPS)["median_s"]]
+    ratio = (own[1] + own[2]) / (own[0] + own[3])
+    print(f"[slice12] judged K1 ET off: measure_at at the timer's point "
+          f"{(own[1] + own[2]) / 2 * 1e3:.4f} ms, measure "
+          f"{(own[0] + own[3]) / 2 * 1e3:.4f} ms (ratio {ratio:.4f}, band "
+          f"{SLICE12_BAND})")
+    if abs(ratio - 1) > SLICE12_BAND:
+        raise AssertionError(f"measure_at {own[1:3]} s is not within "
+                             f"{SLICE12_BAND:.0%} of measure {own[::3]} s")
+
+    audit_rows, fits = audit.audit(rows)
+    for r in audit_rows:
+        if r["fit"] != "twophase":
+            iters = 25 if r["fit"] == "layered_etoff" else 50
+            if r["edge_iters_per_frame"] != r["E_lifted"] * iters:
+                raise AssertionError(f"[slice12] audit row {r}")
+    for label, ((c1, c2, c3), ok) in fits.items():
+        print(f"[slice12] audit {label}: ps/edge = {1e12 * c1:.3f} + "
+              f"{1e12 * c2:.3f}*[Z%8!=0] + {1e12 * c3:.4f}*rowdeg over "
+              f"{len(ok)} cells; " + ", ".join(
+                  f"{r['cell']} bucket {r['bucket']} {r['ps_per_edge']} ps "
+                  f"({r['residual_pct']:+.1f}%)" for r in ok))
+
+    bg, ebn0 = SLICE12_HARQ
+    spec = harq.LADDERS[bg]
+    stages = harq.StageTimer(bg, spec["stage_m"], harq.Z, BATCH, dev,
+                             SLICE12_REPS)
+    point = harq.run_point(bg, spec, ebn0, stages, harq.Z, BATCH, dev)
+    again = run_irharq(Z=harq.Z, stage_m=spec["stage_m"], ebn0_db=ebn0,
+                       batch=BATCH, iters=harq.ITERS, alpha=harq.ALPHA,
+                       seed=harq.SEED, bg=bg, crc=harq.CRC, device=dev)
+    if point["stages"] != again.stages:
+        raise AssertionError(f"[slice12] HARQ stages {point['stages']} != "
+                             f"{again.stages}")
+    gbps = (point["eff_info_gbps_active_batching"],
+            point["eff_info_gbps_full_vector"])
+    if not all(g is not None and math.isfinite(g) and g > 0 for g in gbps):
+        raise AssertionError(f"[slice12] HARQ throughput {gbps}")
+    print(f"[slice12] HARQ bg{bg} {ebn0} dB b={BATCH}: stage FERs "
+          f"{[s['fer_after'] for s in point['stages']]} == a second "
+          f"run_irharq; stage ms a batch "
+          f"{[round(s['ms_per_batch'], 4) for s in point['stage_timing']]} "
+          f"(occupancy {[s['occ'] for s in point['stage_timing']]}); "
+          f"delivered {gbps[0]:.4f} Gb/s active-set, {gbps[1]:.4f} Gb/s "
+          f"full vector; run_irharq {point['harq_wall_s']} s")
+    torch.cuda.synchronize()
+    print(f"[slice12] wall {time.perf_counter() - t0:.2f} s")
+    return {"rows": rows, "measure_at_ratio": ratio}
+
+
 def main() -> int:
     import torch
 
@@ -1486,7 +1628,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from tpu_ldpc_torch import LdpcCode, _build
+    from tpu_ldpc_torch import LdpcCode, _build, benchcore
     from tpu_ldpc_torch.cli import sim as cli_sim
     from tpu_ldpc_torch.cli.config import ChannelCfg, CodeSpec
     from tpu_ldpc_torch.decode import decode
@@ -1525,11 +1667,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = benchcore.smi()
     print(f"[1 device] {name} capability={cap} count="
           f"{torch.cuda.device_count()} torch={torch.__version__} "
           f"cuda={torch.version.cuda}")
@@ -1874,6 +2012,7 @@ def main() -> int:
     twophase = {}
     slice10 = {}
     slice11 = {}
+    slice12 = {}
 
     def slice2_path():
         """Layered min-sum, exact sum-product and two-phase decoding:
@@ -2195,7 +2334,9 @@ def main() -> int:
                                  ranks=_slice10_path(dev)), KERNELS[:1]),
                              ("slice 11", lambda: slice11.update(
                                  _slice11_path(dev, smi)),
-                              (KERNELS[0], KERNELS[1], KERNELS[4]))):
+                              (KERNELS[0], KERNELS[1], KERNELS[4])),
+                             ("slice 12", lambda: slice12.update(
+                                 _slice12_path(dev, smi)), KERNELS[:2])):
         t_phase = time.perf_counter()
         reset_launches()
         path()
@@ -2398,6 +2539,17 @@ def main() -> int:
     if abs(a_ms / k1_ms - 1) > BENCH_K1_BAND:
         raise AssertionError(f"(a) {a_ms} ms is not within "
                              f"{BENCH_K1_BAND:.0%} of K1's {k1_ms} ms")
+
+    # slice 12: the tuner's judged ET-off times against this phase's
+    for key, kname in (("layered_etoff_ms", "minsum_layered"),
+                       ("flood_etoff_ms", "minsum_flood")):
+        got, want = slice12["rows"]["qc1024_r12"][key], k_times[kname][0]
+        print(f"[slice12] judged {key} {got:.4f} ms by the tuner against "
+              f"phase 5's {kname} {want:.4f} ms: ratio {got / want:.4f} "
+              f"(band {SLICE12_BAND}); {smi}")
+        if abs(got / want - 1) > SLICE12_BAND:
+            raise AssertionError(f"tuner {key} {got} ms is not within "
+                                 f"{SLICE12_BAND:.0%} of {kname}'s {want}")
 
     _slice8_times(dev)
     _slice9_times(dev, probe, smi)

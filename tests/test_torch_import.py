@@ -76,6 +76,9 @@ def test_no_port_module_imports_the_jax_package():
     paths += [os.path.join(REPO, "chip_smoke.py"),
               os.path.join(REPO, "scripts", "torch_ab_time.py"),
               os.path.join(REPO, "scripts", "torch_registry_validation.py"),
+              os.path.join(REPO, "scripts", "torch_tune_registry_knobs.py"),
+              os.path.join(REPO, "scripts", "torch_roofline_audit.py"),
+              os.path.join(REPO, "scripts", "torch_irharq.py"),
               os.path.join(REPO, "tests", "torch_dist_worker.py")]
     for mod in PORT_MODULES:  # every listed module is scanned
         rel = mod.replace(".", os.sep)
@@ -91,7 +94,10 @@ def test_no_port_module_imports_the_jax_package():
 def test_chip_scripts_import_only_the_port():
     for path in ("chip_smoke.py", "tpu_ldpc_torch/cli/profile_mc.py",
                  "tpu_ldpc_torch/cli/bench.py",
-                 "scripts/torch_registry_validation.py"):
+                 "scripts/torch_registry_validation.py",
+                 "scripts/torch_tune_registry_knobs.py",
+                 "scripts/torch_roofline_audit.py",
+                 "scripts/torch_irharq.py"):
         mods = list(_imported_modules(os.path.join(REPO, path)))
         assert any(m.startswith("tpu_ldpc_torch") for m in mods), path
         bad = [m for m in mods
@@ -99,15 +105,22 @@ def test_chip_scripts_import_only_the_port():
         assert not bad, (path, bad)
 
 
-def test_chip_scripts_fail_without_a_card():
+def test_chip_scripts_fail_without_a_card(tmp_path):
+    """Without a card each card script exits 1 and writes no result; the
+    registry tools' card scripts run only when given --device cpu."""
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    knobs, harq = tmp_path / "knobs.json", tmp_path / "harq.json"
     for argv in (["chip_smoke.py"], ["-m", "tpu_ldpc_torch.cli.profile_mc"],
-                 ["-m", "tpu_ldpc_torch.cli.bench", "--json"]):
+                 ["-m", "tpu_ldpc_torch.cli.bench", "--json"],
+                 ["scripts/torch_tune_registry_knobs.py", "--out",
+                  str(knobs)],
+                 ["scripts/torch_irharq.py", "--out", str(harq)]):
         out = subprocess.run([sys.executable, *argv], cwd=REPO, env=env,
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 1, (argv, out.stderr)
         assert '"ok"' not in out.stdout, argv
         assert "ms_per_batch" not in out.stdout, argv
+    assert not knobs.exists() and not harq.exists()
 
 
 def test_decode_numpy_input_asks_for_the_card(monkeypatch):

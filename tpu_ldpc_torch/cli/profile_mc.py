@@ -25,16 +25,8 @@ Without a CUDA device it exits with 1.
 
 from __future__ import annotations
 
-import subprocess
 import sys
 import time
-
-
-def _smi(query: str) -> str:
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 def _smem_accesses_per_iteration(code, E: int) -> int:
@@ -58,12 +50,13 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_ldpc_torch import LdpcCode
+    from tpu_ldpc_torch.benchcore import smi
     from tpu_ldpc_torch.codes_device import to_device
     from tpu_ldpc_torch.decode.cuda_bp import build_cuda_decoder
     from tpu_ldpc_torch.sim.mc import DecodeCfg, build_mc_step
 
-    print(f"nvidia-smi name,power.limit: {_smi('name,power.limit')}")
-    max_sm_mhz = float(_smi("clocks.max.sm").split()[0])
+    print(f"nvidia-smi name,power.limit: {smi('name,power.limit')}")
+    max_sm_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     code = LdpcCode.judged()
     step = build_mc_step(code, DecodeCfg(), BATCH, SPC, device="cuda")

@@ -305,9 +305,16 @@ def build_decoder(
     rescaled: bool = False,
     msg_dtype=None,
     compressed: bool = False,
+    dtype=torch.float32,
 ):
     """Plain decoder: llr (batch, n) float32 on any device ->
     (bits uint8 (batch, n), ok bool (batch,), iters_used int32 (batch,)).
+
+    dtype: the arithmetic type, as the JAX reference decoder's `dtype`:
+    the LLRs are cast to it and R is allocated in it, so every message
+    and posterior is computed and rounded in it (torch.bfloat16 agrees
+    with the JAX reference's bf16 on most frames, not bit for bit: XLA
+    may keep excess precision inside a fusion).
 
     quant_bits / quant_step / quant_post_bits: fixed-point mode (min-sum
     only; post bits default to quant_bits + 2).
@@ -468,8 +475,8 @@ def build_decoder(
     def init_state(L):
         batch = L.shape[0]
 
-        def zeros(rows, dtype=torch.float32):
-            return torch.zeros((batch, rows, Z), dtype=dtype,
+        def zeros(rows, kind=None):
+            return torch.zeros((batch, rows, Z), dtype=kind or L.dtype,
                                device=L.device)
 
         if compressed:
@@ -508,7 +515,7 @@ def build_decoder(
         return state[0], _syndrome_ok(state[0], edges, row_edges), iu
 
     def posterior(llr: torch.Tensor):
-        llr = llr.to(torch.float32)
+        llr = llr.to(dtype)
         if qz is not None:
             llr = qz(llr)  # channel-entry quantization
         L = llr.reshape(llr.shape[0], nb, Z)
@@ -524,3 +531,9 @@ def build_decoder(
 
     decode_fn.posterior = posterior
     return decode_fn
+
+
+def decode(code: LdpcCode, llr, **kw):
+    """Decode a batch of LLRs (a tensor, or an array on the CPU) with the
+    plain decoder ``build_decoder(code, **kw)``."""
+    return build_decoder(code, **kw)(torch.as_tensor(llr))

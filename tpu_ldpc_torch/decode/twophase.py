@@ -113,32 +113,30 @@ def build_twophase_decoder(
 
 def tune_phase1_iters(code: LdpcCode, ebn0_db: float, batch: int = 4096,
                       iters: int = 50, seed: int = 0, margin: float = 2.0,
-                      *, device, algo: str = "minsum", alpha: float = 0.75,
-                      beta: float = 0.0, schedule: str = "flooding"):
+                      *, device, **decoder_kw):
     """Pick (phase1_iters, budget) from the measured iteration
     distribution at an operating point.
 
-    Decodes `batch` random codewords at `ebn0_db` (LLRs drawn from a
-    torch.Generator seeded with `seed`, on `device`) once with the
-    single-pass ET decoder, builds the straggler curve survivors[K]
-    (lanes needing more than K iterations), sizes the phase-2 budget at
-    each K as `margin` x the stragglers rounded up to 128 lanes, and picks
-    the K minimizing the work model K*batch + iters*budget(K).  The model
-    counts iterations, not time: measure the tuned K and its neighbours on
-    the card.  Returns (phase1_iters, budget, stats_dict).
+    Decodes `batch` random codewords at `ebn0_db` (the LLRs of
+    ``benchcore.make_timer(code, batch, ebn0_db, n_buffers=1, seed=seed)``,
+    on `device`) once with the single-pass ET decoder
+    ``build_cuda_decoder(code, iters=iters, early_stop=True,
+    **decoder_kw)`` -- decoder_kw: algo, alpha, beta, schedule and the
+    mode keywords (quant_*, msg_dtype, rescaled, compressed, normalize),
+    as the JAX tuner passes them to build_pallas_decoder -- builds the
+    straggler curve survivors[K] (lanes needing more than K iterations),
+    sizes the phase-2 budget at each K as `margin` x the stragglers
+    rounded up to 128 lanes, and picks the K minimizing the work model
+    K*batch + iters*budget(K).  The model counts iterations, not time:
+    measure the tuned K and its neighbours on the card.  Returns
+    (phase1_iters, budget, stats_dict).
     """
-    from tpu_ldpc_torch.channel.awgn import awgn_llrs
-    from tpu_ldpc_torch.codes_device import resolve_device
-    from tpu_ldpc_torch.encode.encoder import select_encoder
+    from tpu_ldpc_torch.benchcore import make_timer
 
-    device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    encode_fn, k, _ = select_encoder(code, device=device)
-    u = torch.randint(0, 2, (batch, k), generator=gen, device=device,
-                      dtype=torch.uint8)
-    llr = awgn_llrs(encode_fn(u), ebn0_db, k / code.n, gen).contiguous()
-    dec = build_cuda_decoder(code, algo, int(iters), alpha, beta, schedule)
+    llr = make_timer(code, batch, ebn0_db, device=device, n_buffers=1,
+                     seed=seed).llrs[0]
+    dec = build_cuda_decoder(code, iters=int(iters), early_stop=True,
+                             **decoder_kw)
     _, ok, iu = (x.cpu().numpy() for x in dec(llr))
     # lanes that never converge report iu == iters and are stragglers
     # at every K < iters; the budget must cover them

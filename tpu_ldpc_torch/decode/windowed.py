@@ -122,7 +122,7 @@ def _check_node(q, M, edge, algo: str, alpha: float, beta: float):
     if M is not None:
         mag = torch.where(M, mag, _ABSENT_MAG)
         neg = neg & M
-    sgn = torch.where(neg, -1.0, 1.0)
+    sgn = torch.where(neg, -1.0, 1.0).to(q.dtype)
     sgn = sgn.prod(dim=-2, keepdim=True) * sgn  # products of +-1: exact
     m1, a1 = mag.min(dim=-2, keepdim=True)  # the first index on ties
     first = edge == a1
@@ -161,6 +161,7 @@ def build_windowed_decoder(
     sweep: str = "flooding",
     *,
     device,
+    dtype=torch.float32,
 ):
     """Windowed decoder on `device`: llr (batch, n) -> (bits, ok,
     iters_used).
@@ -170,7 +171,9 @@ def build_windowed_decoder(
     inside the window, 'flooding' (CN on all window rows, then one VN
     pass) or 'layered' (rows top to bottom, each updating P at once).
     A window of all mb rows is one slide: the plain flooding or layered
-    decoder without early termination, bit for bit."""
+    decoder without early termination, bit for bit.  dtype: the
+    arithmetic type, as the JAX decoder's: the LLRs are cast to it and R
+    is allocated in it."""
     if algo not in ("minsum", "sumproduct", "sumproduct-fast"):
         raise ValueError(f"unknown algo {algo!r}")
     if sweep not in ("flooding", "layered"):
@@ -181,11 +184,11 @@ def build_windowed_decoder(
         raise ValueError(f"window must be in [1, mb={code.mb}], got {W}")
     f32 = np.float32
     return _build(code, W, int(iters_per_window), algo, float(f32(alpha)),
-                  float(f32(beta)), sweep, resolve_device(device))
+                  float(f32(beta)), sweep, resolve_device(device), dtype)
 
 
 @functools.lru_cache(maxsize=32)
-def _build(code, W, ipw, algo, alpha, beta, sweep, device):
+def _build(code, W, ipw, algo, alpha, beta, sweep, device, dtype):
     _, M_np = banded_tables(code)
     qidx_np, vidx_np = chain_tables(code)
     Z, nb, mb = code.Z, code.nb, code.mb
@@ -239,11 +242,11 @@ def _build(code, W, ipw, algo, alpha, beta, sweep, device):
     total_iters = n_windows * ipw
 
     def decode_fn(llr: torch.Tensor):
-        llr = llr.to(torch.float32)
+        llr = llr.to(dtype)
         b = llr.shape[0]
         L = F.pad(llr.reshape(b, nb, Z), (0, 0, 4, 4))
         P = L.clone()
-        R = torch.zeros((b, mb + 4, _DEG, Z), dtype=torch.float32,
+        R = torch.zeros((b, mb + 4, _DEG, Z), dtype=dtype,
                         device=llr.device)
         for p in range(n_windows):
             slide(p, L, P, R)
