@@ -210,7 +210,8 @@ def test_profile_writes_trace(tmp_path):
                          profile=str(tmp_path))
     assert dt > 0
     with open(tmp_path / "trace_rank0.json") as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    assert "ldpc.decode" in {e.get("name") for e in events}
 
 
 def test_early_stop_off_only_for_bp():

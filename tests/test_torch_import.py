@@ -27,7 +27,7 @@ PORT_MODULES = (
     "tpu_ldpc_torch.encode.encoder", "tpu_ldpc_torch.sim",
     "tpu_ldpc_torch.sim.state", "tpu_ldpc_torch.sim.search",
     "tpu_ldpc_torch.cli.config",
-    "tpu_ldpc_torch.cli.sim", "tpu_ldpc_torch.cli.profile_mc",
+    "tpu_ldpc_torch.cli.sim", "tpu_ldpc_torch.spans",
     "tpu_ldpc_torch._build", "tpu_ldpc_torch._native",
     "tpu_ldpc_torch.codes.anneal", "tpu_ldpc_torch.codes.peg",
     "tpu_ldpc_torch.codes.pexit", "tpu_ldpc_torch.codes.dmin",
@@ -92,8 +92,7 @@ def test_no_port_module_imports_the_jax_package():
 
 
 def test_chip_scripts_import_only_the_port():
-    for path in ("chip_smoke.py", "tpu_ldpc_torch/cli/profile_mc.py",
-                 "tpu_ldpc_torch/cli/bench.py",
+    for path in ("chip_smoke.py", "tpu_ldpc_torch/cli/bench.py",
                  "scripts/torch_registry_validation.py",
                  "scripts/torch_tune_registry_knobs.py",
                  "scripts/torch_roofline_audit.py",
@@ -110,7 +109,7 @@ def test_chip_scripts_fail_without_a_card(tmp_path):
     registry tools' card scripts run only when given --device cpu."""
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     knobs, harq = tmp_path / "knobs.json", tmp_path / "harq.json"
-    for argv in (["chip_smoke.py"], ["-m", "tpu_ldpc_torch.cli.profile_mc"],
+    for argv in (["chip_smoke.py"],
                  ["-m", "tpu_ldpc_torch.cli.bench", "--json"],
                  ["scripts/torch_tune_registry_knobs.py", "--out",
                   str(knobs)],

@@ -5,6 +5,7 @@ of tpu_ldpc_torch.cli.launch over gloo: two ranks write one CSV (rank 0)
 and a Chrome trace each; one rank writes the CSV of the single-process
 sweep, row for row.  Both launches start together, once per module."""
 
+import json
 import os
 import signal
 import subprocess
@@ -73,13 +74,17 @@ def test_two_ranks_one_report(runs):
 
 
 def test_two_ranks_profile_traces(runs):
+    """Each rank's Chrome trace carries the port's spans, the sharded
+    step's all_reduce among them."""
     tmp, _ = runs
     for rank in (0, 1):
         path = tmp / "prof" / f"trace_rank{rank}.json"
         assert path.stat().st_size > 1000
         with open(path) as f:
-            head = f.read(4096)
-        assert "traceEvents" in head
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name") for e in events}
+        assert {"ldpc.mc.point", "ldpc.mc.call", "ldpc.mc.allreduce",
+                "ldpc.mc.read", "ldpc.mc.batch", "ldpc.decode"} <= names
 
 
 def test_one_rank_equals_the_single_process_sweep(runs):

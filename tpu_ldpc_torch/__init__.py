@@ -41,6 +41,9 @@ the MC step's fault-injection hook and ``encode()``:
   ``harq.run_irharq``), ``cli`` (``cli.bench``: throughput), ``report``:
   the public entry points;
 - ``benchcore``: the card's throughput timer (CUDA events);
+- ``spans``: ``span(name)``, the torch.profiler annotations at each layer
+  boundary (``ldpc.search``, ``ldpc.mc.*``, ``ldpc.decode``,
+  ``ldpc.build``), a shared no-op while no profiler runs;
 - ``dist``: process groups (``init_distributed``, ``make_mesh``), the
   sharded MC step, the grid sweep, the partitioned and ring decoders.
 

@@ -36,7 +36,8 @@ import os
 import shutil
 import subprocess
 import threading
-import time
+
+from tpu_ldpc_torch.spans import span
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -52,7 +53,6 @@ _libs: dict[str, ctypes.CDLL] = {}
 # per loaded source: nvcc's output (ptxas report), from this build or the
 # log kept beside an existing library
 build_log: dict[str, str] = {}
-build_seconds = 0.0  # wall time of the parallel build; 0.0 when all were built
 
 
 def _find_nvcc() -> str:
@@ -88,34 +88,34 @@ def library_path(name: str) -> str:
 
 
 def _build_missing() -> None:
-    """Start one nvcc per missing library, all at once; wait for all."""
-    global build_seconds
+    """Start one nvcc per missing library, all at once; wait for all
+    (inside the span ``ldpc.build``)."""
     todo = {name: library_path(name) for name in sources()}
     todo = {name: out for name, out in todo.items() if not os.path.exists(out)}
     if not todo:
         return
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _find_nvcc()
-    t0 = time.perf_counter()
-    procs = {}
-    for name, out in todo.items():
-        tmp = f"{out}.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, sources()[name]]
-        procs[name] = (cmd, tmp, out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (cmd, tmp, out, proc) in procs.items():
-        build_log[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-            failed.append(f"nvcc failed (rc={proc.returncode}): "
-                          f"{' '.join(cmd)}\n{build_log[name]}")
-        else:
-            with open(f"{out}.log", "w") as f:
-                f.write(build_log[name])
-            os.replace(tmp, out)
-    build_seconds = time.perf_counter() - t0
+    with span("ldpc.build"):
+        procs = {}
+        for name, out in todo.items():
+            tmp = f"{out}.tmp{os.getpid()}"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, sources()[name]]
+            procs[name] = (cmd, tmp, out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for name, (cmd, tmp, out, proc) in procs.items():
+            build_log[name] = proc.communicate()[0]
+            if proc.returncode != 0:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+                failed.append(f"nvcc failed (rc={proc.returncode}): "
+                              f"{' '.join(cmd)}\n{build_log[name]}")
+            else:
+                with open(f"{out}.log", "w") as f:
+                    f.write(build_log[name])
+                os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
 

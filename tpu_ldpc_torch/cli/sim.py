@@ -37,7 +37,8 @@ outer CRC that gates the detected / undetected counters.
 rank, counters all-reduced, and only rank 0 prints the table and writes
 the CSV / JSONL.  ``--profile DIR`` runs the sweep under
 ``torch.profiler`` (CPU, and CUDA activities on the card) and writes a
-Chrome trace per rank, ``DIR/trace_rank<r>.json``.
+Chrome trace per rank, ``DIR/trace_rank<r>.json``, in which the port's
+``ldpc.*`` spans (``spans.py``) bound each layer's host work.
 """
 
 from __future__ import annotations

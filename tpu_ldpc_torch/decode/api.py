@@ -45,6 +45,7 @@ from tpu_ldpc_torch.codes.code import LdpcCode
 from tpu_ldpc_torch.codes_device import resolve_device
 from tpu_ldpc_torch.decode.flood_plan import (
     SMEM_LIMIT_BYTES, code_flood_smem_bytes)
+from tpu_ldpc_torch.spans import span
 
 _NOT_PORTED_IMPL = {
     "pallas": "the TPU kernel's counterpart is impl='cuda' "
@@ -126,7 +127,8 @@ def build_decode_fn(code: LdpcCode, cfg, device, mesh=None, *,
             raise ValueError(
                 f"llr is on {llr.device}, decoder was built for {device}"
             )
-        return run(llr)
+        with span("ldpc.decode"):
+            return run(llr)
 
     return decode_fn
 

@@ -39,6 +39,7 @@ from tpu_ldpc_torch.decode.layered_plan import layered_plan
 from tpu_ldpc_torch.decode.normalize import coordinates
 from tpu_ldpc_torch.decode.reference import (
     build_decoder, is_bf16, quant_params)
+from tpu_ldpc_torch.spans import spanned
 
 # ldpc::Algo in bp_common.cuh
 _ALGO_IDS = {"minsum": 0, "sumproduct": 1, "sumproduct-fast": 2}
@@ -83,6 +84,7 @@ def reset_launches() -> None:
 
 
 @functools.lru_cache(maxsize=64)
+@spanned("ldpc.build")
 def build_cuda_decoder(
     code: LdpcCode,
     algo: str = "minsum",

@@ -41,6 +41,7 @@ import functools
 import numpy as np
 
 from tpu_ldpc_torch.codes.code import LdpcCode
+from tpu_ldpc_torch.spans import spanned
 
 BUCKETS = (8, 16, 32)
 # most threads a bucket's kernel may launch (its __launch_bounds__)
@@ -145,6 +146,7 @@ def i32(a):
 
 
 @functools.lru_cache(maxsize=128)
+@spanned("ldpc.build")
 def flood_plan(code: LdpcCode, shifts: tuple) -> FloodPlan:
     """The flooding kernel's plan for `code` run with `shifts` (one per
     edge, in layout order)."""
@@ -220,6 +222,7 @@ def compressed_smem_bytes(m: int, n: int, edge_slots: int,
 
 
 @functools.lru_cache(maxsize=64)
+@spanned("ldpc.build")
 def compressed_plan(code: LdpcCode) -> CompressedPlan:
     """The compressed-state kernel's plan for `code` (its own
     coordinates: compressed state ignores shift normalization)."""

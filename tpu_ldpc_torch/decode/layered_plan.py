@@ -41,6 +41,7 @@ import numpy as np
 
 from tpu_ldpc_torch.codes.code import LdpcCode
 from tpu_ldpc_torch.decode.flood_plan import SMEM_LIMIT_BYTES, i32
+from tpu_ldpc_torch.spans import spanned
 
 BUCKETS = (8, 16, 32)
 MAX_BLOCK_THREADS = 256   # the kernel's __launch_bounds__
@@ -122,6 +123,7 @@ class LayeredPlan:
 
 
 @functools.lru_cache(maxsize=128)
+@spanned("ldpc.build")
 def layered_plan(code: LdpcCode, shifts: tuple, msg_bytes: int = 4,
                  early_stop: bool = False) -> LayeredPlan:
     """The layered kernel's plan for `code` run with `shifts` (one per

@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_ldpc_torch.codes_device import resolve_device
+from tpu_ldpc_torch.spans import span, spanned
 
 
 def init_distributed(backend: str | None = None, device="cuda", **kw):
@@ -177,14 +178,16 @@ def fold_generator_rank(seed: int, snr_idx: int, batch_ctr: int, rank: int,
     device 0 included, so its device 0 does not draw its single-device
     stream; the draws differ from it anyway (Philox / Mersenne Twister
     against Threefry)."""
-    state = np.random.SeedSequence(
-        [seed, snr_idx, batch_ctr, rank]).generate_state(1, np.uint64)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(state[0] >> np.uint64(1)))
-    return gen
+    with span("ldpc.mc.seed"):
+        state = np.random.SeedSequence(
+            [seed, snr_idx, batch_ctr, rank]).generate_state(1, np.uint64)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(state[0] >> np.uint64(1)))
+        return gen
 
 
 @functools.lru_cache(maxsize=64)
+@spanned("ldpc.build")
 def build_sharded_mc_step(code, cfg, per_rank_batch: int, mesh: Mesh,
                           steps_per_call: int = 1, adapt=None, crc=None):
     """SPMD MC step: (seed, snr_idx, ebn0_db, ctr0) -> (6,) int64 counters
@@ -199,13 +202,16 @@ def build_sharded_mc_step(code, cfg, per_rank_batch: int, mesh: Mesh,
     device = mesh.device
     one_batch = BatchFn(code, cfg, per_rank_batch, device, adapt, crc)
 
+    @spanned("ldpc.mc.call")
     def step(seed: int, snr_idx: int, ebn0_db: float, ctr0: int):
         acc = torch.zeros(6, dtype=torch.int64, device=device)
         for t in range(steps_per_call):
-            gen = fold_generator_rank(seed, snr_idx, ctr0 + t, mesh.rank,
-                                      device)
-            acc += one_batch(gen, ebn0_db)
-        return mesh.all_reduce(acc)  # the one collective of a call
+            with span("ldpc.mc.batch"):
+                gen = fold_generator_rank(seed, snr_idx, ctr0 + t,
+                                          mesh.rank, device)
+                acc += one_batch(gen, ebn0_db)
+        with span("ldpc.mc.allreduce"):
+            return mesh.all_reduce(acc)  # the one collective of a call
 
     step.k = one_batch.k  # effective info bits per frame
     return step
@@ -232,24 +238,28 @@ def run_ber_sharded(code, ebn0_grid: Sequence[float], cfg, batch: int,
                                  adapt, crc)
     results = []
     for snr_idx, ebn0 in enumerate(ebn0_grid):
-        res = SnrResult(ebn0_db=float(ebn0))
-        batch_ctr = 0
-        if state is not None:
-            saved = state.load_point(snr_idx)
-            if saved is not None:
-                res, batch_ctr = saved
-        t0 = time.perf_counter()
-        while res.frame_errors < target_frame_errors and res.frames < max_frames:
-            counters = step(seed, snr_idx, float(ebn0), batch_ctr).tolist()
-            for name, v in zip(COUNTER_FIELDS, counters):
-                setattr(res, name, getattr(res, name) + int(v))
-            batch_ctr += steps_per_call
+        with span("ldpc.mc.point"):
+            res = SnrResult(ebn0_db=float(ebn0))
+            batch_ctr = 0
             if state is not None:
-                state.save_point(snr_idx, res, batch_ctr)
-            if step_log is not None and mesh.rank == 0:
-                _log_step(step_log, res, t0, step.k)
-        res.wall_s += time.perf_counter() - t0
-        res.bits = res.frames * step.k
+                saved = state.load_point(snr_idx)
+                if saved is not None:
+                    res, batch_ctr = saved
+            t0 = time.perf_counter()
+            while (res.frame_errors < target_frame_errors
+                   and res.frames < max_frames):
+                acc = step(seed, snr_idx, float(ebn0), batch_ctr)
+                with span("ldpc.mc.read"):
+                    counters = acc.tolist()
+                for name, v in zip(COUNTER_FIELDS, counters):
+                    setattr(res, name, getattr(res, name) + int(v))
+                batch_ctr += steps_per_call
+                if state is not None:
+                    state.save_point(snr_idx, res, batch_ctr)
+                if step_log is not None and mesh.rank == 0:
+                    _log_step(step_log, res, t0, step.k)
+            res.wall_s += time.perf_counter() - t0
+            res.bits = res.frames * step.k
         results.append(res)
         if progress and mesh.rank == 0:
             print(f"Eb/N0 {ebn0:5.2f} dB [{mesh.size} ranks]: "

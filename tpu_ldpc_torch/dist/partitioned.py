@@ -33,6 +33,7 @@ from tpu_ldpc_torch.decode.reference import (
     _cn_sumproduct_fast,
 )
 from tpu_ldpc_torch.dist.mesh import Mesh
+from tpu_ldpc_torch.spans import spanned
 
 
 def cn_update_fn(algo: str, alpha: float, beta: float):
@@ -178,6 +179,7 @@ def build_partitioned_decoder(code, mesh: Mesh, algo: str = "minsum",
     def violations(P):
         return mesh.all_reduce(local.violations(P))
 
+    @spanned("ldpc.decode")
     def decode_fn(llr: torch.Tensor):
         L = llr.to(torch.float32).T.contiguous()  # (n, batch)
 

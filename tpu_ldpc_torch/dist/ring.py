@@ -37,6 +37,7 @@ import torch
 from tpu_ldpc_torch.dist.mesh import Mesh
 from tpu_ldpc_torch.dist.partitioned import (
     LocalPass, cn_update_fn, decode_loop)
+from tpu_ldpc_torch.spans import spanned
 
 
 def ring_geometry(code, n_ranks: int):
@@ -110,6 +111,7 @@ def build_ring_decoder(code, mesh: Mesh, algo: str = "minsum",
         P_ext = torch.cat([mesh.shift(P_loc[-h:], 1), P_loc])
         return mesh.all_reduce(local.violations(P_ext))
 
+    @spanned("ldpc.decode")
     def decode_fn(llr: torch.Tensor):
         L = llr.to(torch.float32).T[j0 * Z:(j0 + cpd) * Z].contiguous()
 

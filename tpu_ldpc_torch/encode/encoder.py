@@ -27,6 +27,7 @@ import torch
 
 from tpu_ldpc_torch.codes.code import LdpcCode
 from tpu_ldpc_torch.codes_device import resolve_device, to_device
+from tpu_ldpc_torch.spans import spanned
 
 
 def _gf2_product(u: torch.Tensor, MT: torch.Tensor) -> torch.Tensor:
@@ -35,6 +36,7 @@ def _gf2_product(u: torch.Tensor, MT: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
+@spanned("ldpc.build")
 def _build_encoder(code: LdpcCode, method: str, device: torch.device):
     if method == "generator":
         MT = to_device(code, device).parity_MT  # (k, m); raises if singular

@@ -47,6 +47,7 @@ from tpu_ldpc_torch.codes.crc import (
 from tpu_ldpc_torch.codes_device import resolve_device
 from tpu_ldpc_torch.decode.api import build_decode_fn
 from tpu_ldpc_torch.encode.encoder import select_encoder
+from tpu_ldpc_torch.spans import span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,11 +134,12 @@ def _log_step(path: str, res: SnrResult, t0: float, k: int) -> None:
 def batch_generator(seed: int, snr_idx: int, batch_ctr: int,
                     device) -> torch.Generator:
     """The generator of one batch, seeded from (seed, snr_idx, batch_ctr)."""
-    state = np.random.SeedSequence([seed, snr_idx, batch_ctr]).generate_state(
-        1, np.uint64)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(state[0] >> np.uint64(1)))
-    return gen
+    with span("ldpc.mc.seed"):
+        state = np.random.SeedSequence(
+            [seed, snr_idx, batch_ctr]).generate_state(1, np.uint64)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(state[0] >> np.uint64(1)))
+        return gen
 
 
 # test-only fault-injection hook: called as
@@ -201,6 +203,7 @@ class BatchFn:
         self.k = k_eff
         self.rate = k_eff / n_tx
 
+    @spanned("ldpc.mc.draw")
     def draw(self, generator: torch.Generator):
         if self.crc_attach is not None:
             u = self.crc_attach(torch.randint(
@@ -218,37 +221,41 @@ class BatchFn:
                        ebn0_db: float, generator=None) -> torch.Tensor:
         """(6,) int64 counters (COUNTER_FIELDS order) on the device;
         `generator` goes to the fault hook alone."""
-        if self.active_u is not None:
-            u = u * self.active_u  # shortened info bits are zeros
-        c = self.encode_fn(u)
-        if self.tx_mask is not None:
-            llr = adapted_llrs_from_noise(c, noise, ebn0_db, self.rate,
-                                          self.tx_mask, self.known_llr)
-        else:
-            llr = llrs_from_noise(c, noise, ebn0_db, self.rate)
+        with span("ldpc.mc.encode"):
+            if self.active_u is not None:
+                u = u * self.active_u  # shortened info bits are zeros
+            c = self.encode_fn(u)
+        with span("ldpc.mc.channel"):
+            if self.tx_mask is not None:
+                llr = adapted_llrs_from_noise(c, noise, ebn0_db, self.rate,
+                                              self.tx_mask, self.known_llr)
+            else:
+                llr = llrs_from_noise(c, noise, ebn0_db, self.rate)
         bits, ok, iters_used = self.decode_fn(llr)
         if self.fault_hook is not None:
             bits, ok, iters_used = self.fault_hook(generator, bits, ok,
                                                    iters_used)
-        info = (bits[:, :self.k_info] if self.info_cols is None
-                else bits[:, self.info_cols])
-        wrong = info != u
-        if self.active_u is not None:
-            wrong &= self.active_u == 1
-        if self.crc_ok is not None:
-            wrong = wrong[:, :self.kp]  # genie errors over payload bits
-            passed = self.crc_ok(info)
-        else:
-            passed = ok
-        frame_wrong = wrong.any(dim=1)
-        return torch.stack([
-            torch.full((), u.shape[0], dtype=torch.int64, device=u.device),
-            wrong.sum(),
-            frame_wrong.sum(),
-            (~passed).sum(),
-            (passed & frame_wrong).sum(),
-            iters_used.sum(dtype=torch.int64),
-        ])
+        with span("ldpc.mc.count"):
+            info = (bits[:, :self.k_info] if self.info_cols is None
+                    else bits[:, self.info_cols])
+            wrong = info != u
+            if self.active_u is not None:
+                wrong &= self.active_u == 1
+            if self.crc_ok is not None:
+                wrong = wrong[:, :self.kp]  # genie errors over payload bits
+                passed = self.crc_ok(info)
+            else:
+                passed = ok
+            frame_wrong = wrong.any(dim=1)
+            return torch.stack([
+                torch.full((), u.shape[0], dtype=torch.int64,
+                           device=u.device),
+                wrong.sum(),
+                frame_wrong.sum(),
+                (~passed).sum(),
+                (passed & frame_wrong).sum(),
+                iters_used.sum(dtype=torch.int64),
+            ])
 
     def __call__(self, generator: torch.Generator, ebn0_db: float):
         return self.batch_counters(*self.draw(generator), ebn0_db,
@@ -261,14 +268,17 @@ def build_batch_fn(code: LdpcCode, cfg: DecodeCfg, batch: int, adapt=None,
 
 
 @functools.lru_cache(maxsize=64)
+@spanned("ldpc.build")
 def _build_mc_step(code, cfg, batch, steps_per_call, device, adapt, crc):
     one_batch = BatchFn(code, cfg, batch, device, adapt, crc)
 
+    @spanned("ldpc.mc.call")
     def step(seed: int, snr_idx: int, ebn0_db: float, ctr0: int):
         acc = torch.zeros(6, dtype=torch.int64, device=device)
         for t in range(steps_per_call):
-            gen = batch_generator(seed, snr_idx, ctr0 + t, device)
-            acc += one_batch(gen, ebn0_db)
+            with span("ldpc.mc.batch"):
+                gen = batch_generator(seed, snr_idx, ctr0 + t, device)
+                acc += one_batch(gen, ebn0_db)
         return acc
 
     step.k = one_batch.k
@@ -335,24 +345,28 @@ def run_ber(
                          device=device)
     results = []
     for snr_idx, ebn0 in enumerate(ebn0_grid):
-        res = SnrResult(ebn0_db=float(ebn0))
-        batch_ctr = 0
-        if state is not None:
-            saved = state.load_point(snr_idx)
-            if saved is not None:
-                res, batch_ctr = saved
-        t0 = time.perf_counter()
-        while res.frame_errors < target_frame_errors and res.frames < max_frames:
-            counters = step(seed, snr_idx, float(ebn0), batch_ctr).tolist()
-            for name, v in zip(COUNTER_FIELDS, counters):
-                setattr(res, name, getattr(res, name) + int(v))
-            batch_ctr += steps_per_call
+        with span("ldpc.mc.point"):
+            res = SnrResult(ebn0_db=float(ebn0))
+            batch_ctr = 0
             if state is not None:
-                state.save_point(snr_idx, res, batch_ctr)
-            if step_log is not None:
-                _log_step(step_log, res, t0, step.k)
-        res.wall_s += time.perf_counter() - t0
-        res.bits = res.frames * step.k
+                saved = state.load_point(snr_idx)
+                if saved is not None:
+                    res, batch_ctr = saved
+            t0 = time.perf_counter()
+            while (res.frame_errors < target_frame_errors
+                   and res.frames < max_frames):
+                acc = step(seed, snr_idx, float(ebn0), batch_ctr)
+                with span("ldpc.mc.read"):
+                    counters = acc.tolist()
+                for name, v in zip(COUNTER_FIELDS, counters):
+                    setattr(res, name, getattr(res, name) + int(v))
+                batch_ctr += steps_per_call
+                if state is not None:
+                    state.save_point(snr_idx, res, batch_ctr)
+                if step_log is not None:
+                    _log_step(step_log, res, t0, step.k)
+            res.wall_s += time.perf_counter() - t0
+            res.bits = res.frames * step.k
         results.append(res)
         if progress:
             print(

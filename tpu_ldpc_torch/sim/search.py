@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 from tpu_ldpc_torch.sim.mc import DecodeCfg, SnrResult, run_ber
+from tpu_ldpc_torch.spans import spanned
 
 
 @dataclasses.dataclass
@@ -25,6 +26,7 @@ class FerSearchResult:
     converged: bool           # False if target lies outside [lo, hi]
 
 
+@spanned("ldpc.search")
 def find_ebn0_at_fer(
     code,
     target_fer: float,
@@ -60,6 +62,7 @@ def find_ebn0_at_fer(
         max_frames = int(4 * target_frame_errors / target_fer)
     probes: list[SnrResult] = []
 
+    @spanned("ldpc.search.probe")
     def fer_at(ebn0: float) -> float:
         res = run_ber(
             code, [ebn0], cfg=cfg, batch=batch,
