@@ -42,8 +42,10 @@ one chunk a cell; slice 12: the registry tools (the two-phase knob
 tuner's measurement of four cells, two-phase against single-pass ET on
 its probe, the judged ET-off times against phase 5's, measure_at over
 buffers rebuilt on the card against measure, the edge-rate audit over those rows, one IR-HARQ point with its
-stage times and delivered Gb/s) -- times kernels and plain versions with
-CUDA events, and prints:
+stage times and delivered Gb/s); the MC batch kernels (mc_encode_llr,
+mc_count) against BatchFn's torch ops bit for bit, at the cells' shapes
+too, the regroup identity and the world-1 sharded step -- times kernels
+and plain versions with CUDA events, and prints:
 
   - one line per phase, and each [slice11] and [slice12] record;
   - the card's name and power limit (nvidia-smi);
@@ -1505,6 +1507,187 @@ def _load_script(name):
     return mod
 
 
+# the MC batch kernels (csrc/mc_batch.cu) against BatchFn's PyTorch ops on
+# the card, bit for bit: a batch that is no multiple of kernel A's 16
+# frames a block, three seeds (two above 2**31) and two Eb/N0 a case; then
+# at the cells' shapes (judged b=16384, nrlike punctured b=4096) checked
+# again and timed
+MC_BATCH = 4099
+MC_SEEDS = (SEED + 70, 2**31 + 7, 2**33 + 5)
+MC_EBN0 = (1.0, 2.0)
+MC_TIME_SHAPES = (("judged", 16384, 2.0), ("nrlike punctured", 4096, 1.6))
+
+
+def _mc_batch_cases():
+    """(label, code, adapt, crc) of each case of _mc_batch_path."""
+    from tpu_ldpc_torch import LdpcCode
+    from tpu_ldpc_torch.channel.adapt import RateAdapt
+    from tpu_ldpc_torch.codes.base_graphs import make_sc_base_graph
+    from tpu_ldpc_torch.codes.crc import CrcSpec
+    from tpu_ldpc_torch.codes.nrlike import nrlike_adapt, nrlike_code
+
+    judged = LdpcCode.judged()
+    nr = nrlike_code("1/2", 64)
+    sc = LdpcCode.from_base_graph(make_sc_base_graph(16, 64), 64,
+                                  "sc_l16_z64")
+    return (
+        ("judged", judged, None, None),
+        ("nrlike punctured", nr, nrlike_adapt(nr), None),
+        ("judged shortened", judged, RateAdapt.from_blocks(
+            judged, puncture_blocks=(15,), shorten_blocks=(0, 3)), None),
+        ("judged crc24", judged, None, "crc24"),
+        ("judged crc5", judged, None, CrcSpec("crc5", 5, 0x05)),
+        ("sc pivot", sc, None, None),
+    )
+
+
+def _mc_batch_path(dev, smi):
+    """mc_encode_llr and mc_count against BatchFn's plain versions
+    (plain_llrs, plain_counters) on the card, LLRs as int32 and the
+    counters exactly, over _mc_batch_cases; the regroup identity, the
+    world-1 NCCL sharded step against the single-device step and both
+    against the plain counters; launches on the main path; at the cells'
+    shapes both kernels against the plain versions again, then each
+    kernel's ms a batch beside its bound and its plain version's.  Returns
+    the two kernels' rows of the kernel table, max_abs_err the largest
+    |kernel - plain| of all those comparisons."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_ldpc_torch.decode.cuda_bp import LAUNCHES as DEC_LAUNCHES
+    from tpu_ldpc_torch.dist import init_distributed, make_mesh
+    from tpu_ldpc_torch.dist.mesh import build_sharded_mc_step
+    from tpu_ldpc_torch.sim import mc_batch
+    from tpu_ldpc_torch.sim.mc import (
+        BatchFn, DecodeCfg, batch_generator, build_mc_step)
+
+    cfg = DecodeCfg()
+    cases = _mc_batch_cases()
+    max_err = {"mc_encode_llr": 0.0, "mc_count": 0}
+
+    def compare(what, llr, want_llr, counts, want_counts):
+        # LLRs as int32 and the counters exactly; raises on any difference
+        llr_off = int((llr.view(torch.int32)
+                       != want_llr.view(torch.int32)).sum())
+        errs = {"mc_encode_llr": float((llr - want_llr).abs().max()),
+                "mc_count": max(int((c - w).abs().max())
+                                for c, w in zip(counts, want_counts))}
+        for name, err in errs.items():
+            max_err[name] = max(max_err[name], err)
+        if llr_off or any(errs.values()):
+            raise AssertionError(
+                f"[mc_batch] {what}: {llr_off} LLRs differ (max |err| "
+                f"{errs['mc_encode_llr']}); counters "
+                f"{[c.tolist() for c in counts]} plain "
+                f"{[w.tolist() for w in want_counts]}")
+
+    for label, code, adapt, crc in cases:
+        fn = BatchFn(code, cfg, MC_BATCH, dev, adapt, crc)
+        if fn.kernels is None:
+            raise AssertionError(f"{label}: BatchFn on the card took no "
+                                 f"kernels")
+        totals = torch.zeros(6, dtype=torch.int64)
+        for seed in MC_SEEDS:
+            for ebn0 in MC_EBN0:
+                u, noise = fn.draw(batch_generator(seed, 0, 0, dev))
+                um, want_llr = fn.plain_llrs(u, noise, ebn0)
+                llr = fn.kernels.encode_llr(u, noise, ebn0, fn.rate)
+                bits, ok, iu = fn.decode_fn(llr)
+                want = fn.plain_counters(um, bits, ok, iu)
+                got = fn.batch_counters(u, noise, ebn0)
+                base = torch.arange(1, 7, dtype=torch.int64, device=dev)
+                added = fn.batch_counters(u, noise, ebn0, out=base.clone())
+                compare(f"{label} seed {seed} {ebn0} dB", llr, want_llr,
+                        (got, added), (want, base + want))
+                totals += want.cpu()
+        print(f"[mc_batch] {label} {code.name} b={MC_BATCH} "
+              f"(kp {fn.kp}, info_cols {fn.info_cols is not None}, masks "
+              f"{fn.tx_mask is not None}): kernels == plain bit for bit on "
+              f"{len(MC_SEEDS)} seeds x {MC_EBN0} dB; counters summed "
+              f"{totals.tolist()}")
+
+    # the main path: regroup, world-1 sharded step, launches
+    judged = cases[0][1]
+    seed, ebn0, b = MC_SEEDS[1], 2.0, 4096
+    plain = BatchFn(judged, cfg, b, dev)
+    want = torch.zeros(6, dtype=torch.int64, device=dev)
+    for t in range(4):
+        u, noise = plain.draw(batch_generator(seed, 0, t, dev))
+        um, llr = plain.plain_llrs(u, noise, ebn0)
+        want += plain.plain_counters(um, *plain.decode_fn(llr))
+    mc_batch.reset_launches()
+    dec0 = DEC_LAUNCHES["minsum_flood"]
+    got = {spc: sum(build_mc_step(judged, cfg, b, spc, device=dev)(
+        seed, 0, ebn0, c) for c in range(0, 4, spc)) for spc in (1, 2, 4)}
+    launches = dict(mc_batch.LAUNCHES)
+    dec = DEC_LAUNCHES["minsum_flood"] - dec0
+    if launches != {"mc_encode_llr": 12, "mc_count": 12} or dec != 12:
+        raise AssertionError(f"[mc_batch] 12 batches: {launches}, K1 {dec}")
+    created = not dist.is_initialized()
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        os.environ.pop(var, None)
+    init_distributed(device="cuda")
+    try:
+        got["sharded"] = build_sharded_mc_step(
+            judged, cfg, b, make_mesh(), 4)(seed, 0, ebn0, 0)
+    finally:
+        if created:
+            dist.destroy_process_group()
+    for key, acc in got.items():
+        if not torch.equal(acc, want):
+            raise AssertionError(f"[mc_batch] step {key}: {acc.tolist()} "
+                                 f"!= plain {want.tolist()}")
+    print(f"[mc_batch] regroup spc 1 / 2 / 4 and the world-1 NCCL sharded "
+          f"step == plain counters {want.tolist()} (judged b={b}, 4 "
+          f"batches); launches {launches}, K1 {dec}")
+
+    # times at the cells' shapes
+    rows = {"mc_encode_llr": [], "mc_count": []}
+    for label, b, ebn0 in MC_TIME_SHAPES:
+        code, adapt, crc = next(c[1:] for c in cases if c[0] == label)
+        fn = BatchFn(code, cfg, b, dev, adapt, crc)
+        u, noise = fn.draw(batch_generator(MC_SEEDS[0], 0, 0, dev))
+        um, want_llr = fn.plain_llrs(u, noise, ebn0)
+        llr = fn.kernels.encode_llr(u, noise, ebn0, fn.rate)
+        bits, ok, iu = fn.decode_fn(llr)
+        out = torch.zeros(6, dtype=torch.int64, device=dev)
+        compare(f"{label} b={b} {ebn0} dB", llr, want_llr,
+                (fn.kernels.count(bits, u, ok, iu, out),),
+                (fn.plain_counters(um, bits, ok, iu),))
+        runs = {
+            "mc_encode_llr": (
+                lambda: fn.kernels.encode_llr(u, noise, ebn0, fn.rate),
+                lambda: fn.plain_llrs(u, noise, ebn0),
+                b * (fn.k_info + 8 * fn.n)),
+            "mc_count": (
+                lambda: fn.kernels.count(bits, u, ok, iu, out),
+                lambda: fn.plain_counters(um, bits, ok, iu),
+                b * (2 * fn.k_info + 5)),
+        }
+        for name, (kern, plain_fn, nbytes) in runs.items():
+            kern(), plain_fn()
+            torch.cuda.synchronize()
+            p1 = _cuda_time_ms(plain_fn, 20)
+            k1, k2 = _cuda_time_ms(kern, 100), _cuda_time_ms(kern, 100)
+            p2 = _cuda_time_ms(plain_fn, 20)
+            k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            bound = nbytes / 3.35e12 * 1e3
+            print(f"[mc_batch time] {name} {label} {code.name} b={b}: "
+                  f"kernel {k_ms:.5f} ms/batch ({k1:.5f}, {k2:.5f}), "
+                  f"bound {bound:.5f} ms ({nbytes} B at 3.35 TB/s, "
+                  f"{bound / k_ms:.1%} of it), plain {p_ms:.5f} ms "
+                  f"({p1:.5f}, {p2:.5f}); {smi}")
+            rows[name].append((label, b, k_ms, bound, p_ms))
+    return [{"name": name, "route": "cuda", "source": "csrc/mc_batch.cu",
+             "replaces": "sim/mc.py::BatchFn torch ops (no TPU kernel)",
+             "launches": launches[name],
+             "max_abs_err": max_err[name],
+             "ms": r[0][2], "plain_ms": r[0][4], "bound_ms": r[0][3],
+             "bound_by": "bytes", "library_ms": None,
+             "shapes": [list(x) for x in r]}
+            for name, r in rows.items()]
+
+
 def _slice12_path(dev, smi):
     """The registry tools in this process: the tuner's measurement of
     SLICE12_CELLS (tune_phase1_iters, two-phase and single-pass layered ET
@@ -2553,6 +2736,7 @@ def main() -> int:
     _slice8_times(dev)
     _slice9_times(dev, probe, smi)
     _slice10_times(dev, slice10["ranks"], smi)
+    results += _mc_batch_path(dev, smi)
 
     print(f"[5] wall {time.perf_counter() - t_phase:.2f} s")
 

@@ -168,6 +168,22 @@ def _declare(lib) -> None:
         lib.ldpc_bp_compressed.restype = ctypes.c_int
         lib.ldpc_bp_compressed_smem_bytes.argtypes = [i, i, i, i, i]
         lib.ldpc_bp_compressed_smem_bytes.restype = ctypes.c_size_t
+    if hasattr(lib, "ldpc_mc_encode_llr"):
+        lib.ldpc_mc_encode_llr.argtypes = [
+            p, p, p,             # u, noise, llr
+            p, p, p,             # table, pos, active_u
+            p, p,                # tx_mask, known_llr
+            i, i, i, f, f,       # batch, k, n, sigma, scale
+            p,                   # stream
+        ]
+        lib.ldpc_mc_encode_llr.restype = ctypes.c_int
+        lib.ldpc_mc_count.argtypes = [
+            p, p, p, p,          # bits, u, passed, iters
+            p, p,                # info_cols, active_u
+            i, i, i, i,          # batch, n, k, kp
+            p, p,                # acc, stream
+        ]
+        lib.ldpc_mc_count.restype = ctypes.c_int
     lib.ldpc_cuda_error_string.argtypes = [i]
     lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
 

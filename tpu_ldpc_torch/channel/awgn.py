@@ -27,13 +27,18 @@ def bpsk(c: torch.Tensor) -> torch.Tensor:
     return 1.0 - 2.0 * c.to(torch.float32)
 
 
+def llr_constants(ebn0_db: float, rate: float) -> tuple[float, float]:
+    """(sigma, 2 / sigma^2) as float32 values: llr = scale * (x + sigma *
+    noise)."""
+    sigma2 = np.float32(noise_sigma2(float(ebn0_db), rate))
+    return float(np.sqrt(sigma2)), float(np.float32(2.0) / sigma2)
+
+
 def llrs_from_noise(c: torch.Tensor, noise: torch.Tensor, ebn0_db: float,
                     rate: float) -> torch.Tensor:
     """Channel LLRs (batch, n) float32 for codewords `c` and unit-variance
     Gaussian `noise` of the same shape."""
-    sigma2 = np.float32(noise_sigma2(float(ebn0_db), rate))
-    sigma = float(np.sqrt(sigma2))
-    scale = float(np.float32(2.0) / sigma2)
+    sigma, scale = llr_constants(ebn0_db, rate)
     return scale * (bpsk(c) + sigma * noise.to(torch.float32))
 
 

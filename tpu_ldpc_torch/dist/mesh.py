@@ -209,7 +209,7 @@ def build_sharded_mc_step(code, cfg, per_rank_batch: int, mesh: Mesh,
             with span("ldpc.mc.batch"):
                 gen = fold_generator_rank(seed, snr_idx, ctr0 + t,
                                           mesh.rank, device)
-                acc += one_batch(gen, ebn0_db)
+                one_batch(gen, ebn0_db, acc)
         with span("ldpc.mc.allreduce"):
             return mesh.all_reduce(acc)  # the one collective of a call
 

@@ -15,6 +15,11 @@
     pivot / information-set split and the pivot bits are one matrix
     product.  ``encode_fn.k`` is the true dimension n - rank(H) and
     ``encode_fn.info_cols`` maps info bits to codeword positions.
+
+The generator and pivot encoders also carry their parity map on the
+host, ``encode_fn.parity_M`` (m, k) 0/1, and ``encode_fn.parity_cols``
+(the codeword positions of the parity bits; None: k .. n-1), from which
+``sim/mc_batch.py`` packs the Monte-Carlo kernel's table.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ def _build_encoder(code: LdpcCode, method: str, device: torch.device):
 
         encode_fn.k = code.k
         encode_fn.info_cols = None
+        encode_fn.parity_M, encode_fn.parity_cols = code.parity_M, None
         return encode_fn
 
     if method == "pivot":
@@ -74,6 +80,8 @@ def _build_encoder(code: LdpcCode, method: str, device: torch.device):
 
         encode_fn.k = n - rank
         encode_fn.info_cols = free
+        encode_fn.parity_M = rref[:rank][:, free]
+        encode_fn.parity_cols = pivots
         return encode_fn
 
     if method == "dual_diagonal":

@@ -23,6 +23,12 @@ detected / undetected mean CRC failed / CRC passed on a wrong payload.
 Without either, a batch draws u (batch, k) and then the noise from its
 generator: the regroup and resume identities rest on that order.
 
+On the card a batch is five launches: the two draws, ``mc_encode_llr``
+(encoder and channel), the decode and ``mc_count`` (``sim/mc_batch.py``,
+``csrc/mc_batch.cu``), which adds the counters into the step's
+accumulator.  On the CPU it runs the PyTorch ops below, the kernels'
+plain version.  Every encoder and mode takes the same two kernels.
+
 A test-only fault-injection hook (``_FAULT_HOOK``, or ``fault_hook=`` of
 ``BatchFn``) corrupts the decoder's outputs so that tests can check that
 the counters catch a faulty decode.
@@ -47,6 +53,7 @@ from tpu_ldpc_torch.codes.crc import (
 from tpu_ldpc_torch.codes_device import resolve_device
 from tpu_ldpc_torch.decode.api import build_decode_fn
 from tpu_ldpc_torch.encode.encoder import select_encoder
+from tpu_ldpc_torch.sim.mc_batch import BatchKernels
 from tpu_ldpc_torch.spans import span, spanned
 
 
@@ -202,6 +209,10 @@ class BatchFn:
         k_eff -= k - self.kp  # CRC bits are overhead, not information
         self.k = k_eff
         self.rate = k_eff / n_tx
+        # on the card two kernels around the decode, whatever the encoder,
+        # adaptation or CRC; on the CPU (None) the torch ops
+        self.kernels = (BatchKernels.of(self) if self.device.type == "cuda"
+                        else None)
 
     @spanned("ldpc.mc.draw")
     def draw(self, generator: torch.Generator):
@@ -218,9 +229,43 @@ class BatchFn:
         return u, noise
 
     def batch_counters(self, u: torch.Tensor, noise: torch.Tensor,
-                       ebn0_db: float, generator=None) -> torch.Tensor:
+                       ebn0_db: float, generator=None,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
         """(6,) int64 counters (COUNTER_FIELDS order) on the device;
-        `generator` goes to the fault hook alone."""
+        `generator` goes to the fault hook alone.  With `out` (int64 (6,)
+        on the device) the counters are added into it and it is
+        returned."""
+        if self.kernels is None:
+            u, llr = self.plain_llrs(u, noise, ebn0_db)
+        else:
+            with span("ldpc.mc.encode"):  # the encoder and the channel
+                llr = self.kernels.encode_llr(u, noise, ebn0_db, self.rate)
+        bits, ok, iters_used = self.decode_fn(llr)
+        if self.fault_hook is not None:
+            bits, ok, iters_used = self.fault_hook(generator, bits, ok,
+                                                   iters_used)
+        with span("ldpc.mc.count"):
+            if self.kernels is None:
+                counters = self.plain_counters(u, bits, ok, iters_used)
+                if out is None:
+                    return counters
+                out += counters
+                return out
+            passed = ok
+            if self.crc_ok is not None:  # the CRC's check: torch ops
+                passed = self.crc_ok(self._info(bits))
+            if out is None:
+                out = torch.zeros(6, dtype=torch.int64, device=u.device)
+            return self.kernels.count(bits, u, passed, iters_used, out)
+
+    def _info(self, bits: torch.Tensor) -> torch.Tensor:
+        return (bits[:, :self.k_info] if self.info_cols is None
+                else bits[:, self.info_cols])
+
+    def plain_llrs(self, u: torch.Tensor, noise: torch.Tensor,
+                   ebn0_db: float):
+        """Kernel A's plain version: (u with its shortened bits zeroed,
+        the LLRs (batch, n) float32)."""
         with span("ldpc.mc.encode"):
             if self.active_u is not None:
                 u = u * self.active_u  # shortened info bits are zeros
@@ -231,35 +276,36 @@ class BatchFn:
                                               self.tx_mask, self.known_llr)
             else:
                 llr = llrs_from_noise(c, noise, ebn0_db, self.rate)
-        bits, ok, iters_used = self.decode_fn(llr)
-        if self.fault_hook is not None:
-            bits, ok, iters_used = self.fault_hook(generator, bits, ok,
-                                                   iters_used)
-        with span("ldpc.mc.count"):
-            info = (bits[:, :self.k_info] if self.info_cols is None
-                    else bits[:, self.info_cols])
-            wrong = info != u
-            if self.active_u is not None:
-                wrong &= self.active_u == 1
-            if self.crc_ok is not None:
-                wrong = wrong[:, :self.kp]  # genie errors over payload bits
-                passed = self.crc_ok(info)
-            else:
-                passed = ok
-            frame_wrong = wrong.any(dim=1)
-            return torch.stack([
-                torch.full((), u.shape[0], dtype=torch.int64,
-                           device=u.device),
-                wrong.sum(),
-                frame_wrong.sum(),
-                (~passed).sum(),
-                (passed & frame_wrong).sum(),
-                iters_used.sum(dtype=torch.int64),
-            ])
+        return u, llr
 
-    def __call__(self, generator: torch.Generator, ebn0_db: float):
+    def plain_counters(self, u: torch.Tensor, bits: torch.Tensor,
+                       ok: torch.Tensor,
+                       iters_used: torch.Tensor) -> torch.Tensor:
+        """Kernel B's plain version: the (6,) int64 counters of a decoded
+        batch, u as ``plain_llrs`` returns it."""
+        info = self._info(bits)
+        wrong = info != u
+        if self.active_u is not None:
+            wrong &= self.active_u == 1
+        if self.crc_ok is not None:
+            wrong = wrong[:, :self.kp]  # genie errors over payload bits
+            passed = self.crc_ok(info)
+        else:
+            passed = ok
+        frame_wrong = wrong.any(dim=1)
+        return torch.stack([
+            torch.full((), u.shape[0], dtype=torch.int64, device=u.device),
+            wrong.sum(),
+            frame_wrong.sum(),
+            (~passed).sum(),
+            (passed & frame_wrong).sum(),
+            iters_used.sum(dtype=torch.int64),
+        ])
+
+    def __call__(self, generator: torch.Generator, ebn0_db: float,
+                 out: torch.Tensor | None = None):
         return self.batch_counters(*self.draw(generator), ebn0_db,
-                                   generator)
+                                   generator, out)
 
 
 def build_batch_fn(code: LdpcCode, cfg: DecodeCfg, batch: int, adapt=None,
@@ -278,7 +324,7 @@ def _build_mc_step(code, cfg, batch, steps_per_call, device, adapt, crc):
         for t in range(steps_per_call):
             with span("ldpc.mc.batch"):
                 gen = batch_generator(seed, snr_idx, ctr0 + t, device)
-                acc += one_batch(gen, ebn0_db)
+                one_batch(gen, ebn0_db, acc)
         return acc
 
     step.k = one_batch.k

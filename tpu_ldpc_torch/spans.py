@@ -21,7 +21,8 @@ The spans, outermost first (each nests in the one above it):
 - ``ldpc.mc.batch``: one batch; inside it ``ldpc.mc.seed`` (the batch's
   generator), ``ldpc.mc.draw``, ``ldpc.mc.encode``, ``ldpc.mc.channel``,
   ``ldpc.decode`` (every call of a ``build_decode_fn`` decoder) and
-  ``ldpc.mc.count``;
+  ``ldpc.mc.count``; on the card ``ldpc.mc.encode`` holds the one kernel
+  that encodes and computes the LLRs, and there is no ``ldpc.mc.channel``;
 - ``ldpc.build``: a build (nvcc, or a cache-missed builder of a step,
   decoder, encoder or kernel plan), wherever it happens.
 """
