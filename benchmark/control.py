@@ -5,15 +5,15 @@ lower-precision control on others, at the cell's own size and load.
     python benchmark/control.py --workload <cell> --seconds 2 \
         --program-seeds 1 2 3 ... --control-seeds 101 102 103
 
-For every seed the cell's driver sets up, runs a short window of
-``--seconds`` and keeps its answers, as a benchmark run does.  A program
-seed then reads ``check`` (the program against the reference); a control
-seed reads ``control`` (bfloat16 message storage in the program's place:
-the program's own bf16 kernel where its timed path can select it, else
-the reference with its messages stored in bfloat16).  One JSON line a
-reading, then a summary: the largest program reading and the smallest
-control reading of each number.  The benchmark's own runs never run the
-control.
+For every seed the cell runs as a benchmark run does (on the cards it
+asks for): set-up, a short window of ``--seconds``, its answers kept.  A
+program seed then reads ``check`` (the program against the reference); a
+control seed reads ``control`` (bfloat16 message storage in the
+program's place: the program's own bf16 kernel where its timed path can
+select it, else the reference with its messages stored in bfloat16).
+One JSON line a reading, then a summary: the largest program reading
+and the smallest control reading of each number.  The benchmark's own
+runs never run the control.
 """
 
 import time
@@ -28,29 +28,27 @@ import sys  # noqa: E402
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [_HERE, os.path.dirname(_HERE)]
 
-from ldpcbench.harness import BENCH_DIR, ROOT, prepare  # noqa: E402
+from ldpcbench.harness import BENCH_DIR, ROOT, run  # noqa: E402
 
 
 def readings(root, bench_dir, workload, seconds, program_seeds,
-             control_seeds, device):
+             control_seeds, device_type, world=None):
     """{'program': {name: [values]}, 'control': {name: [values]}}, with a
-    JSON line printed for each seed."""
+    JSON line printed for each seed; world: ranks (the cell's chips
+    unless given)."""
     out = {"program": {}, "control": {}}
     for side, seeds in (("program", program_seeds),
                         ("control", control_seeds)):
+        judge = "check" if side == "program" else "control"
         for seed in seeds:
-            _, driver, ctx = prepare(root, bench_dir, workload, seed,
-                                     seconds, False, device)
-            state = driver.setup(ctx)
-            with ctx.tracer:
-                run = driver.measure(ctx, state)
-            got = ([(n, v) for n, v, _ in driver.check(ctx, state)]
-                   if side == "program" else driver.control(ctx, state))
-            for name, v in got:
+            result, checks, _ = run(root, bench_dir, workload, seed, seconds,
+                                    False, device_type, 0.0, judge, world)
+            got = {name: v for name, v, _ in checks}
+            for name, v in got.items():
                 out[side].setdefault(name, []).append(v)
             print(json.dumps({"workload": workload, "side": side,
-                              "seed": seed, "attempted": run["attempted"],
-                              "readings": dict(got)}), flush=True)
+                              "seed": seed, "attempted": result["attempted"],
+                              "readings": got}), flush=True)
     return out
 
 
@@ -67,12 +65,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("control: no CUDA device", file=sys.stderr)
         return 2
-    device = torch.device("cuda", 0)
+    torch.cuda.set_device(0)
     out = readings(ROOT, BENCH_DIR, args.workload, args.seconds,
-                   args.program_seeds, args.control_seeds, device)
+                   args.program_seeds, args.control_seeds, "cuda")
     print(json.dumps({
         "workload": args.workload,
-        "card": torch.cuda.get_device_name(device),
+        "card": torch.cuda.get_device_name(0),
         "program_largest": {n: max(v) for n, v in out["program"].items()},
         "control_smallest": {n: min(v) for n, v in out["control"].items()},
         "seconds": time.perf_counter() - T_START}), flush=True)

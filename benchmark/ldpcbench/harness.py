@@ -8,6 +8,12 @@ Each per-layer metric of the cell is read by ``metrics/<name>.py``.  So a
 configuration, a cell or a per-layer metric is added with files and
 entries, and no file here changes.
 
+A cell that asks for N > 1 cards runs on N ranks (``ranks.py``): this
+process is rank 0 on cuda:0 and starts ranks 1 .. N-1, rank r on cuda:r,
+all joined in one process group before set-up.  Every rank sets up and
+measures; rank 0 alone traces, reads the trace, checks and prints.
+``memory_peak_bytes`` is the largest rank's peak and ``count`` is N.
+
 A driver is a module with four functions:
 
 * ``setup(ctx) -> state``: builds the program's objects and the inputs
@@ -15,14 +21,17 @@ A driver is a module with four functions:
 * ``measure(ctx, state) -> dict``: the measured window, a closed loop
   inside the span ``trace.WINDOW``; returns ``attempted``, ``failed``,
   the cell's end-to-end values (``metrics``) and the program's counts
-  that per-layer readers read (``readings``);
+  that per-layer readers read (``readings``).  On several ranks every
+  rank measures and the loop ends on a decision every rank holds;
 * ``check(ctx, state) -> [(name, value, limit), ...]``: frees the
   program's state, runs the plain reference over the answers of the
   window (all, or a sample drawn from the seed) and returns each number
-  compared with its limit;
+  compared with its limit (rank 0 only, once the group is left);
 * ``control(ctx, state) -> [(name, value), ...]``: the same numbers with
   the lower-precision control in the program's place (``control.py``;
   the benchmark's own runs never call it).
+
+``ctx.rank`` and ``ctx.world`` are 0 and 1 in a cell on one card.
 
 A reader is a module with ``read(view) -> float | None``; ``view`` has
 ``trace`` (``trace.Trace`` or None), ``readings``, ``config`` and
@@ -45,7 +54,7 @@ import time
 
 import numpy as np
 
-from ldpcbench import reference
+from ldpcbench import ranks, reference
 from ldpcbench.trace import Tracer
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,9 +98,9 @@ def cell_metrics(bench: dict, cell: str):
 
 
 @functools.lru_cache(maxsize=4)
-def program_kernel_names(csrc: str) -> tuple:
-    """The kernels the program builds from its CUDA sources: every
-    ``__global__`` function of ``csrc/*.cu``."""
+def decode_kernel_names(csrc: str) -> tuple:
+    """The decode kernels the program builds from its CUDA sources: the
+    ``__global__`` functions of ``csrc/*.cu`` named ``bp_*_kernel``."""
     names = set()
     for path in glob.glob(os.path.join(csrc, "*.cu")):
         with open(path) as f:
@@ -101,7 +110,7 @@ def program_kernel_names(csrc: str) -> tuple:
             head = re.sub(r"__launch_bounds__\s*\((?:[^()]|\([^()]*\))*\)",
                           " ", head)
             name = re.search(r"(\w+)\s*\(", head)
-            if name:
+            if name and re.fullmatch(r"bp_\w+_kernel", name.group(1)):
                 names.add(name.group(1))
     return tuple(sorted(names))
 
@@ -115,6 +124,8 @@ class Context:
     seconds: float
     device: object
     tracer: Tracer
+    rank: int = 0
+    world: int = 1
 
     @functools.cached_property
     def ref_code(self) -> reference.Code:
@@ -144,20 +155,28 @@ class View:
     traffic: dict
 
 
-def device_record(device) -> dict:
+def device_record(device, world: int = 1) -> dict:
+    """The line's ``device`` (rank 0's card: cuda:0); on several ranks
+    ``count`` is their number and ``memory_peak_bytes`` the largest
+    rank's peak (a collective: every rank calls it)."""
     import torch
 
     if device.type != "cuda":
-        return {"platform": "cpu", "kind": "cpu", "count": 1,
-                "memory_peak_bytes": 0}
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-            "count": 1,
-            "memory_peak_bytes": int(torch.cuda.max_memory_allocated(device))}
+        peak, rec = 0, {"platform": "cpu", "kind": "cpu"}
+    else:
+        peak = int(torch.cuda.max_memory_allocated(device))
+        rec = {"platform": "gpu", "kind": torch.cuda.get_device_name(device)}
+    if world > 1:
+        t = torch.tensor([peak], dtype=torch.int64, device=device)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+        peak = int(t.item())
+    return dict(rec, count=int(world), memory_peak_bytes=peak)
 
 
 def prepare(root: str, bench_dir: str, workload: str, seed: int,
-            seconds: float, trace: bool, device):
-    """(bench, driver module, Context) of one run."""
+            seconds: float, trace: bool, device, rank: int = 0,
+            world: int = 1):
+    """(bench, driver module, Context) of one run; rank 0 alone traces."""
     if seed < 0:
         raise ValueError(f"--seed must be a whole number >= 0, got {seed}")
     bench = load_json(os.path.join(root, "BENCHMARK.json"))
@@ -172,19 +191,29 @@ def prepare(root: str, bench_dir: str, workload: str, seed: int,
     if trace:
         seconds = min(seconds, TRACE_WINDOW_S)
     ctx = Context(cell, config, traffic, int(seed), float(seconds), device,
-                  Tracer(trace))
+                  Tracer(trace and rank == 0), rank, world)
     return bench, driver, ctx
 
 
 def run_cell(root: str, bench_dir: str, workload: str, seed: int,
-             seconds: float, trace: bool, device, t_start: float):
-    """One run; returns (result dict, checks, timing of its phases).
-    t_start: perf_counter() at process start, from which set-up is
-    timed."""
+             seconds: float, trace: bool, device, t_start: float,
+             judge: str = "check", world: int = 1):
+    """One run of one rank; on rank 0 returns (result dict, checks,
+    timing of its phases), on the others None.  t_start: perf_counter()
+    at process start, from which set-up is timed.  judge "control" puts
+    the driver's lower-precision control in the check's place, each
+    number against the check's limit.  world > 1: this process's rank of
+    the group its environment names (``ranks.py``), on its own card."""
     import torch
 
+    device, rank = torch.device(device), 0
+    if world > 1:
+        ranks.join(device.type)
+        rank = torch.distributed.get_rank()
+    if device.type == "cuda":
+        device = torch.device("cuda", rank)
     bench, driver, ctx = prepare(root, bench_dir, workload, seed, seconds,
-                                 trace, device)
+                                 trace, device, rank, world)
     e2e, layer = cell_metrics(bench, workload)
     state = driver.setup(ctx)
     ctx.sync()
@@ -193,7 +222,11 @@ def run_cell(root: str, bench_dir: str, workload: str, seed: int,
     with ctx.tracer:
         out = driver.measure(ctx, state)
     t_read = time.perf_counter()
-    dev = device_record(device)
+    dev = device_record(device, world)
+    if world > 1:
+        ranks.leave()
+    if rank != 0:
+        return None
     metrics = {}
     breakdown = None
     if trace:
@@ -225,7 +258,11 @@ def run_cell(root: str, bench_dir: str, workload: str, seed: int,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    checks = driver.check(ctx, state)
+    if judge == "control":
+        checks = [(name, v, driver.LIMITS[name])
+                  for name, v in driver.control(ctx, state)]
+    else:
+        checks = driver.check(ctx, state)
     timing = {"setup_s": setup_s, "window_s": t_read - t_window,
               "trace_read_s": t_check - t_read,
               "check_s": time.perf_counter() - t_check}
@@ -239,6 +276,36 @@ def run_cell(root: str, bench_dir: str, workload: str, seed: int,
     result["checks"] = {name: {"value": v, "limit": lim}
                         for name, v, lim in checks}
     return result, checks, timing
+
+
+def run(root: str, bench_dir: str, workload: str, seed: int,
+        seconds: float, trace: bool, device_type: str, t_start: float,
+        judge: str = "check", world: int | None = None):
+    """One run of a cell on `world` ranks (the cell's chips unless
+    given): rank 0 here, the others started as processes of the harness
+    (``ranks.Ranks``).  Returns rank 0's (result, checks, timing)."""
+    if world is None:
+        bench = load_json(os.path.join(root, "BENCHMARK.json"))
+        world = _entry(bench["workloads"], workload, "workload")["chips"]
+    args = dict(root=root, bench_dir=bench_dir, workload=workload,
+                seed=int(seed), seconds=float(seconds), trace=bool(trace),
+                device=device_type, judge=judge, world=int(world))
+    if world == 1:
+        return run_cell(t_start=t_start, **args)
+    with ranks.Ranks(world, "ldpcbench.harness:rank_main", args):
+        return run_cell(t_start=t_start, **args)
+
+
+def rank_main(**kwargs) -> int:
+    """Ranks 1 .. N-1 of a run: the run, then the forbidden-modules
+    check; the exit code."""
+    run_cell(t_start=time.perf_counter(), **kwargs)
+    bad = forbidden_modules()
+    if bad:
+        print(f"benchmark: rank {os.environ.get('RANK')} loaded {bad}",
+              file=sys.stderr)
+        return 3
+    return 0
 
 
 def forbidden_modules() -> list:
@@ -271,11 +338,10 @@ def main(argv, t_start: float) -> int:
         print(f"benchmark: {args.workload} needs {chips} cards, "
               f"{torch.cuda.device_count()} present", file=sys.stderr)
         return 2
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    result, checks, timing = run_cell(ROOT, BENCH_DIR, args.workload,
-                                      args.seed, args.seconds,
-                                      bool(args.trace), device, t_start)
+    torch.cuda.set_device(0)
+    result, checks, timing = run(ROOT, BENCH_DIR, args.workload, args.seed,
+                                 args.seconds, bool(args.trace), "cuda",
+                                 t_start, world=chips)
     bad = forbidden_modules()
     if bad:
         print(f"benchmark: the run loaded {bad}", file=sys.stderr)

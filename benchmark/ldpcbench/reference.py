@@ -333,12 +333,13 @@ COUNTERS = ("frames", "bit_errors", "frame_errors", "detected",
 
 
 def batch_generator(seed: int, snr_idx: int, batch_ctr: int,
-                    device) -> torch.Generator:
+                    device, rank: int | None = None) -> torch.Generator:
     """The generator of one Monte-Carlo batch, seeded from (seed, snr_idx,
     batch_ctr) through np.random.SeedSequence: the draw rule of the
-    program's Monte-Carlo harness."""
-    state = np.random.SeedSequence([seed, snr_idx, batch_ctr]).generate_state(
-        1, np.uint64)
+    program's Monte-Carlo harness; a rank of a sharded step seeds from
+    (seed, snr_idx, batch_ctr, rank)."""
+    entropy = [seed, snr_idx, batch_ctr] + ([] if rank is None else [rank])
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state[0] >> np.uint64(1)))
     return gen
@@ -369,8 +370,9 @@ class MonteCarlo:
         return u, noise
 
     def batch_counters(self, seed: int, snr_idx: int, ctr: int,
-                       ebn0_db: float) -> np.ndarray:
-        u, noise = self.draw(batch_generator(seed, snr_idx, ctr, self.device))
+                       ebn0_db: float, rank: int | None = None) -> np.ndarray:
+        u, noise = self.draw(batch_generator(seed, snr_idx, ctr, self.device,
+                                             rank))
         c = self.code.encode(u)
         llr = channel_llrs(c, noise, ebn0_db, self.rate, self.tx_mask)
         bits, ok, iu = self.decoder(llr)
@@ -382,10 +384,13 @@ class MonteCarlo:
                          int(iu.to(torch.int64).sum())], dtype=np.int64)
 
     def call_counters(self, seed: int, snr_idx: int, ctr0: int,
-                      steps: int, ebn0_db: float) -> np.ndarray:
-        """The six counters of batches ctr0 .. ctr0 + steps - 1."""
-        return sum(self.batch_counters(seed, snr_idx, ctr0 + t, ebn0_db)
-                   for t in range(steps))
+                      steps: int, ebn0_db: float,
+                      ranks: int | None = None) -> np.ndarray:
+        """The six counters of batches ctr0 .. ctr0 + steps - 1; with
+        `ranks`, summed over the streams of ranks 0 .. ranks - 1."""
+        streams = [None] if ranks is None else range(ranks)
+        return sum(self.batch_counters(seed, snr_idx, ctr0 + t, ebn0_db, r)
+                   for r in streams for t in range(steps))
 
     def point(self, seed: int, ebn0_db: float, target_frame_errors: int,
               max_frames: int, steps: int) -> np.ndarray:

@@ -1,11 +1,12 @@
 """Share of the device's busy time spent outside the decode kernels: the
-device time of operations that are not kernels of the program's CUDA
-sources (draws, encoder, channel, counters, copies) over all device time
-in the traced window."""
+device time of operations that are not the program's decode kernels
+(``bp_*_kernel`` of its CUDA sources) over all device time in the traced
+window.  Outside: the draws, the encoder and channel (``mc_encode_llr``),
+the counters (``mc_count``) and any copy."""
 
 import os
 
-from ldpcbench.harness import program_kernel_names
+from ldpcbench.harness import decode_kernel_names
 
 
 def read(view):
@@ -14,7 +15,7 @@ def read(view):
     tr = view.trace
     if tr is None:
         return None
-    names = program_kernel_names(
+    names = decode_kernel_names(
         os.path.join(os.path.dirname(tpu_ldpc_torch.__file__), "csrc"))
     total = tr.device_seconds(lambda n: True)
     if total <= 0 or not names:

@@ -1,4 +1,6 @@
-"""Run one cell of the tpu_ldpc_torch benchmark once, on one CUDA card.
+"""Run one cell of the tpu_ldpc_torch benchmark once, on the CUDA cards it
+asks for (a cell of N > 1 cards: this process is rank 0 and starts the
+other ranks, ``ldpcbench/ranks.py``).
 
     python benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 

@@ -163,3 +163,15 @@ def test_a_cpu_profile_of_the_mc_step_nests_as_the_program_does():
     assert sum(sp.idle.values()) == pytest.approx(tr.window_s * 1e9)
     assert 0 < sp.idle_pct(("ldpc.mc.call",)) < 100
     assert torch.is_tensor(acc)
+
+
+def test_the_all_reduce_reader_reads_nccl_kernels_alone():
+    tr = object.__new__(Trace)
+    tr.window_s = 2.0
+    tr.by_name = {"void bp_flood_kernel<MinSum>(...)": 1.5,
+                  "ncclDevKernel_AllReduce_Sum_u64_RING_LL(...)": 0.02,
+                  "Memcpy DtoH (Device -> Pageable)": 0.01}
+    assert read("mc_allreduce_device_pct.x4", tr) == pytest.approx(1.0)
+    del tr.by_name["ncclDevKernel_AllReduce_Sum_u64_RING_LL(...)"]
+    assert read("mc_allreduce_device_pct.x4", tr) is None
+    assert read("mc_allreduce_device_pct.x4", None) is None
