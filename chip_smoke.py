@@ -44,8 +44,10 @@ its probe, the judged ET-off times against phase 5's, measure_at over
 buffers rebuilt on the card against measure, the edge-rate audit over those rows, one IR-HARQ point with its
 stage times and delivered Gb/s); the MC batch kernels (mc_encode_llr,
 mc_count) against BatchFn's torch ops bit for bit, at the cells' shapes
-too, the regroup identity and the world-1 sharded step -- times kernels
-and plain versions with CUDA events, and prints:
+too, the regroup identity and the world-1 sharded step; K1g, the flooding
+kernel's device-memory form, at the Z = 384 MC cell's shape through the
+MC step, build_decode_fn and decode() against the plain decoder bit for
+bit -- times kernels and plain versions with CUDA events, and prints:
 
   - one line per phase, and each [slice11] and [slice12] record;
   - the card's name and power limit (nvidia-smi);
@@ -1510,12 +1512,13 @@ def _load_script(name):
 # the MC batch kernels (csrc/mc_batch.cu) against BatchFn's PyTorch ops on
 # the card, bit for bit: a batch that is no multiple of kernel A's 16
 # frames a block, three seeds (two above 2**31) and two Eb/N0 a case; then
-# at the cells' shapes (judged b=16384, nrlike punctured b=4096) checked
-# again and timed
+# at the cells' shapes (judged b=16384, nrlike punctured b=4096 at Z = 64
+# and Z = 384) checked again and timed
 MC_BATCH = 4099
 MC_SEEDS = (SEED + 70, 2**31 + 7, 2**33 + 5)
 MC_EBN0 = (1.0, 2.0)
-MC_TIME_SHAPES = (("judged", 16384, 2.0), ("nrlike punctured", 4096, 1.6))
+MC_TIME_SHAPES = (("judged", 16384, 2.0), ("nrlike punctured", 4096, 1.6),
+                  ("nrlike z384 punctured", 4096, 1.2))
 
 
 def _mc_batch_cases():
@@ -1527,12 +1530,13 @@ def _mc_batch_cases():
     from tpu_ldpc_torch.codes.nrlike import nrlike_adapt, nrlike_code
 
     judged = LdpcCode.judged()
-    nr = nrlike_code("1/2", 64)
+    nr, nr384 = nrlike_code("1/2", 64), nrlike_code("1/2", 384)
     sc = LdpcCode.from_base_graph(make_sc_base_graph(16, 64), 64,
                                   "sc_l16_z64")
     return (
         ("judged", judged, None, None),
         ("nrlike punctured", nr, nrlike_adapt(nr), None),
+        ("nrlike z384 punctured", nr384, nrlike_adapt(nr384), None),
         ("judged shortened", judged, RateAdapt.from_blocks(
             judged, puncture_blocks=(15,), shorten_blocks=(0, 3)), None),
         ("judged crc24", judged, None, "crc24"),
@@ -1686,6 +1690,104 @@ def _mc_batch_path(dev, smi):
              "bound_by": "bytes", "library_ms": None,
              "shapes": [list(x) for x in r]}
             for name, r in rows.items()]
+
+
+# K1g (bp_flood_gmem_kernel): the MC cell nr1-z384-mc-1.2dB's shape, NR
+# BG1 at Z = 384, whose flooding state outgrows one block's shared memory
+GMEM_SHAPE = ("nrlike z384 punctured", 4096, 1.2)
+
+
+def _gmem_path(dev, smi):
+    """K1g on the card at GMEM_SHAPE, the launch counters reset first: one
+    batch of the MC step's draws, kernel A's LLRs against plain_llrs,
+    decoded by the step's build_decode_fn decoder (K1g) and by the plain
+    decoder (impl='torch'), bits, ok and iters_used equal; kernel B's
+    counters, and the counters of build_mc_step's own call on that batch,
+    against plain_counters of the plain decode; decode() on the LLRs;
+    every decode launches minsum_flood_gmem and no shared-memory kernel.
+    Then K1g's ms a batch at 50 iterations ET off (and ET on at the cell's
+    Eb/N0) beside its bound and the plain decoder's.  Returns K1g's row of
+    the kernel table."""
+    import torch
+
+    from tpu_ldpc_torch.decode import decode
+    from tpu_ldpc_torch.decode.api import build_decode_fn
+    from tpu_ldpc_torch.decode.cuda_bp import (
+        LAUNCHES, build_cuda_decoder, reset_launches)
+    from tpu_ldpc_torch.decode.reference import build_decoder
+    from tpu_ldpc_torch.sim.mc import (
+        BatchFn, DecodeCfg, batch_generator, build_mc_step)
+
+    label, b, ebn0 = GMEM_SHAPE
+    code, adapt, crc = next(c[1:] for c in _mc_batch_cases()
+                            if c[0] == label)
+    cfg = DecodeCfg()
+    seed = MC_SEEDS[1]
+    reset_launches()
+    fn = BatchFn(code, cfg, b, dev, adapt, crc)
+    u, noise = fn.draw(batch_generator(seed, 0, 0, dev))
+    um, want_llr = fn.plain_llrs(u, noise, ebn0)
+    llr = fn.kernels.encode_llr(u, noise, ebn0, fn.rate)
+    llr_off = int((llr.view(torch.int32) != want_llr.view(torch.int32)).sum())
+    got = fn.decode_fn(llr)
+    t0 = time.perf_counter()
+    want = build_decode_fn(code, DecodeCfg(impl="torch"), dev)(want_llr)
+    torch.cuda.synchronize()
+    plain_on_s = time.perf_counter() - t0
+    err, agree = _diff(got, want)
+    want_counts = fn.plain_counters(um, *want)
+    counts = fn.kernels.count(got[0], u, got[1], got[2], torch.zeros(
+        6, dtype=torch.int64, device=dev))
+    step_counts = build_mc_step(code, cfg, b, 1, adapt, crc,
+                                device=dev)(seed, 0, ebn0, 0)
+    dec = decode(code, llr)
+    dec_err, _ = _diff(dec, got)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    iters_on = float(got[2].double().sum())
+    print(f"[gmem] {label} {code.name} b={b} {ebn0} dB seed {seed}: "
+          f"{llr_off} LLRs differ; K1g against the plain decoder (impl="
+          f"'torch', {plain_on_s:.2f} s) max |err| {err}, frames agreeing "
+          f"{agree}; decode() max |err| {dec_err}; counters kernel B "
+          f"{counts.tolist()}, MC step {step_counts.tolist()}, plain "
+          f"{want_counts.tolist()}; frames ok {int(got[1].sum())}, mean "
+          f"iters {iters_on / b:.4f}; launches {launches}")
+    if (llr_off or err or dec_err
+            or not torch.equal(counts, want_counts)
+            or not torch.equal(step_counts, want_counts)):
+        raise AssertionError(f"[gmem] K1g's path differs from the plain "
+                             f"versions at {GMEM_SHAPE}")
+    if launches != {"minsum_flood": 3, "minsum_flood_gmem": 3}:
+        raise AssertionError(f"[gmem] 3 decodes: launches {launches}")
+
+    run_off = build_cuda_decoder(code, "minsum", 50, 0.75, 0.0, "flooding",
+                                 False, normalize=False)
+    run_on = build_cuda_decoder(code, "minsum", 50, 0.75, 0.0, "flooding",
+                                True, normalize=False)
+    plain_off = build_decoder(code, "minsum", 50, 0.75, 0.0, "flooding",
+                              False)
+    run_off(llr), run_on(llr)
+    torch.cuda.synchronize()
+    k1 = _cuda_time_ms(lambda: run_off(llr), 5)
+    p_ms = _cuda_time_ms(lambda: plain_off(llr), 1)
+    k2 = _cuda_time_ms(lambda: run_off(llr), 5)
+    k_on = _cuda_time_ms(lambda: run_on(llr), 5)
+    k_ms = (k1 + k2) / 2
+    bound, by = _bound_ms(code, b, "minsum", b * 50)
+    bound_on, by_on = _bound_ms(code, b, "minsum", iters_on)
+    print(f"[gmem time] minsum_flood_gmem {code.name} b={b} 50 it ET off: "
+          f"kernel {k_ms:.4f} ms/batch ({k1:.4f}, {k2:.4f}), bound "
+          f"{bound:.5f} ms ({by}, {bound / k_ms:.3%} of it); plain "
+          f"{p_ms:.4f} ms; {ebn0} dB ET on (mean iters {iters_on / b:.4f}): "
+          f"{k_on:.4f} ms, bound {bound_on:.5f} ms ({by_on}); {smi}")
+    return {"name": "minsum_flood_gmem", "route": "cuda",
+            "source": SRC + "bp_flood.cu",
+            "replaces": PALLAS + "514 flooding kernel, state beyond one "
+                                 "block's shared memory",
+            "launches": launches["minsum_flood_gmem"], "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None,
+            "shape": [code.name, b, ebn0]}
 
 
 def _slice12_path(dev, smi):
@@ -2737,6 +2839,7 @@ def main() -> int:
     _slice9_times(dev, probe, smi)
     _slice10_times(dev, slice10["ranks"], smi)
     results += _mc_batch_path(dev, smi)
+    results.append(_gmem_path(dev, smi))
 
     print(f"[5] wall {time.perf_counter() - t_phase:.2f} s")
 

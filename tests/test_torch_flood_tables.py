@@ -6,9 +6,9 @@ the CPU, before any card time is spent on them.
   cn_deg), or the per-edge tables of the two-pass kernel (row_ptr, e_p,
   e_r, e_shift), and the per-variable R slots (vn_info) -- with R in the
   kernel's variable-aligned, column-grouped layout, agrees bit for bit
-  with the plain decoder (reference.build_decoder, float32 min-sum) on
-  the posterior, ok and iters_used, in plain and normalized
-  coordinates, ET on and off.
+  with the plain decoder (reference.build_decoder, float32 min-sum and
+  sumproduct-fast) on the posterior, ok and iters_used, in plain and
+  normalized coordinates, ET on and off.
 - The bucket (the kernel's compile-time row-degree bound) and block size
   of every registry cell and of rows above the largest bucket.
 - Fixed-point's quantizer multiplies by the exact reciprocal of its
@@ -97,10 +97,52 @@ def slot_indices(plan, path, Z):
             torch.from_numpy(np.repeat(deg, Z)))
 
 
-def table_decoder(code, plan, path, col_off, iters, early_stop):
-    """Flooding min-sum in torch ops over the plan's tables alone:
-    llr -> (posterior in the code's coordinates (batch, n), ok,
-    iters_used)."""
+def cn_magnitudes(algo, mags, valid, deg):
+    """The magnitude each slot of a check sends, before its sign, as
+    bp_common.cuh's CN update computes it: min-sum alpha * max(min - 0,
+    0) over the two smallest; sumproduct-fast the pairwise soft-min of the
+    three smallest (the two smallest alone below degree 3).  mags and
+    valid: per slot, (batch, checks); deg: (checks,)."""
+    slots = len(mags)
+    inf = torch.full_like(mags[0], float("inf"))
+    m1, m2, m3 = mags[0], inf, inf
+    a1 = torch.zeros_like(m1, dtype=torch.int64)
+    a2 = torch.full_like(a1, -1)
+    for t in range(1, slots):
+        x, v = mags[t], valid[t]
+        lt1, lt2, lt3 = v & (x < m1), v & (x < m2), v & (x < m3)
+        m3 = torch.where(lt1 | lt2, m2, torch.where(lt3, x, m3))
+        m2 = torch.where(lt1, m1, torch.where(lt2, x, m2))
+        a2 = torch.where(lt1, a1, torch.where(lt2, t, a2))
+        m1 = torch.where(lt1, x, m1)
+        a1 = torch.where(lt1, t, a1)
+    if algo == "minsum":
+        alpha = float(np.float32(ALPHA))
+        m2 = torch.where(deg == 1, m1, m2)
+        s1 = alpha * torch.clamp_min(m1 - 0.0, 0.0)
+        s2 = alpha * torch.clamp_min(m2 - 0.0, 0.0)
+        return [torch.where(a1 == t, s2, s1) for t in range(slots)]
+
+    def ctilde(x):
+        return torch.clamp_min(torch.maximum(torch.maximum(
+            0.6931472 - 0.5 * x, 0.57 - 0.25 * x), 0.40 - 0.125 * x), 0.0)
+
+    def fpair(a, b):
+        return torch.clamp_min(torch.minimum(a, b) + (
+            ctilde(a + b) - ctilde((a - b).abs())), 0.0)
+
+    f23, f13, f12 = fpair(m2, m3), fpair(m1, m3), fpair(m1, m2)
+    return [torch.where(deg == 1, m1, torch.where(
+        deg == 2, torch.where(a1 == t, m2, m1), torch.where(
+            a1 == t, f23, torch.where(a2 == t, f13, f12))))
+        for t in range(slots)]
+
+
+def table_decoder(code, plan, path, col_off, iters, early_stop,
+                  algo="minsum"):
+    """Flooding min-sum (or sumproduct-fast) in torch ops over the plan's
+    tables alone: llr -> (posterior in the code's coordinates (batch, n),
+    ok, iters_used)."""
     Z, n = code.Z, code.n
     cn_p, cn_r, deg = slot_indices(plan, path, Z)
     slots = cn_p.shape[0]
@@ -112,7 +154,6 @@ def table_decoder(code, plan, path, col_off, iters, early_stop):
     j = v // Z
     state = torch.from_numpy(
         j * Z + (v % Z - np.asarray(col_off)[j]) % Z)
-    alpha = float(np.float32(ALPHA))
 
     def syndrome_ok(P):
         bad = torch.zeros(P.shape[0], cn_p.shape[1], dtype=torch.bool)
@@ -123,26 +164,15 @@ def table_decoder(code, plan, path, col_off, iters, early_stop):
     def iteration(L, P, R):
         q = [P[:, cn_p[t]] - R[:, cn_r[t]] for t in range(slots)]
         valid = [t < deg for t in range(slots)]
-        mags = [x.abs() for x in q]
         neg = [x < 0 for x in q]
-        min1 = mags[0]
-        min2 = torch.full_like(min1, float("inf"))
-        argmin = torch.zeros_like(min1, dtype=torch.int64)
         total_neg = neg[0]
         for t in range(1, slots):
-            new = valid[t] & (mags[t] < min1)
-            min2 = torch.where(valid[t], torch.where(
-                new, min1, torch.minimum(min2, mags[t])), min2)
-            argmin = torch.where(new, t, argmin)
-            min1 = torch.where(new, mags[t], min1)
             total_neg = total_neg ^ (neg[t] & valid[t])
-        min2 = torch.where(deg == 1, min1, min2)
+        mags = cn_magnitudes(algo, [x.abs() for x in q], valid, deg)
         R = R.clone()
         total_sign = torch.where(total_neg, -1.0, 1.0)
         for t in range(slots):
-            mag = torch.where(argmin == t, min2, min1)
-            out = (total_sign * torch.where(neg[t], -1.0, 1.0)) * (
-                alpha * torch.clamp_min(mag - 0.0, 0.0))
+            out = (total_sign * torch.where(neg[t], -1.0, 1.0)) * mags[t]
             cols = cn_r[t][valid[t]]
             R[:, cols] = out[:, valid[t]]
         P = L.clone()
@@ -174,20 +204,22 @@ def table_decoder(code, plan, path, col_off, iters, early_stop):
     return decode
 
 
+@pytest.mark.parametrize("algo", ["minsum", "sumproduct-fast"])
 @pytest.mark.parametrize("path", ["one-pass", "two-pass"])
 @pytest.mark.parametrize("early_stop", [True, False])
 @pytest.mark.parametrize("normalize", [False, True])
 @pytest.mark.parametrize("key", CODES)
 def test_table_decoder_matches_plain_decoder(key, normalize, early_stop,
-                                             path):
+                                             path, algo):
     ref, code = make_code(key)
     shifts, col_off = coordinates(code, normalize)
     plan = flood_plan(code, shifts)
     if path == "one-pass":
         assert plan.bucket in BUCKETS
     llr = frame_llrs(ref)
-    got = table_decoder(code, plan, path, col_off, 20, early_stop)(llr)
-    P, ok, iu = build_decoder(code, "minsum", 20, ALPHA, 0.0, "flooding",
+    got = table_decoder(code, plan, path, col_off, 20, early_stop,
+                        algo)(llr)
+    P, ok, iu = build_decoder(code, algo, 20, ALPHA, 0.0, "flooding",
                               early_stop, normalize=normalize).posterior(llr)
     # the posterior itself, bit for bit: a VN sum in another order shows
     for name, g, w in zip(("posterior", "ok", "iters_used"), got,

@@ -139,6 +139,20 @@ def _declare(lib) -> None:
         lib.ldpc_bp_flood.restype = ctypes.c_int
         lib.ldpc_bp_flood_smem_bytes.argtypes = [i, i, i, i, i, i]
         lib.ldpc_bp_flood_smem_bytes.restype = ctypes.c_size_t
+        lib.ldpc_bp_flood_gmem.argtypes = [
+            i,                   # algo
+            p, p, p, p,          # llr, bits, ok, iters_used
+            p, p, p, p,          # vn_info, cn_p, cn_r, cn_deg
+            p, p, p, p,          # row_ptr, e_p, e_r, e_shift
+            p,                   # col_off
+            i, i, i, i, i,       # batch, Z, mb, nb, E
+            i, f, f, i,          # iters, alpha, beta, early_stop
+            i, i, f,             # msg_bf16, rescaled, inv_alpha
+            i, f, f, f, f,       # quantized, step, kmax, lim_msg, lim_post
+            p, ctypes.c_size_t,  # state, bytes a codeword
+            p,                   # stream
+        ]
+        lib.ldpc_bp_flood_gmem.restype = ctypes.c_int
     if hasattr(lib, "ldpc_bp_layered"):
         lib.ldpc_bp_layered.argtypes = [
             i,                   # algo

@@ -105,6 +105,20 @@
 // its row, the per-edge tables in shared memory.  Several codewords per
 // block (to fill the warps of small codes) was not taken: one codeword
 // per block already has 16 warps on the judged code.
+//
+// K1g, bp_flood_gmem_kernel: a code whose state exceeds one block's
+// shared memory (decode/flood_plan.py's SMEM_LIMIT_BYTES; NR BG1 at
+// Z = 384 needs 510,832 B) runs the same body, flood_decode, with L, P
+// and R in a slice of a scratch buffer in device memory, one slice a
+// codeword, which the caller allocates.  The VN table is the same for
+// every codeword, so the VN pass reads the plan's own copy in device
+// memory instead of a copy per codeword; only bucket 0's per-edge tables
+// sit in shared memory, and the rows take bucket 0's two-pass form
+// whatever the code's bucket.  Every policy above runs there in the same
+// order of operations, so K1g equals K1 bit for bit on any code both can
+// hold.  Its loads and stores go through L1 and L2; with hundreds of
+// codewords resident (0.44 MB of state each at Z = 384) the state does
+// not stay in the 50 MB L2, so device-memory bandwidth bounds it.
 
 #include "bp_common.cuh"
 
@@ -272,23 +286,26 @@ struct GenericRows {
   }
 };
 
-template <class CN, class QP, class MP, bool kRescaled, int kMaxDeg>
-__global__ void __launch_bounds__(max_threads(kMaxDeg))
-bp_flood_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
-                uint8_t* __restrict__ ok_out, int32_t* __restrict__ iu_out,
-                Tables tab, const int32_t* __restrict__ col_off, int Z,
-                int mb, int nb, int E, int iters, CN proto, QP quant,
-                float inv_alpha, int early_stop) {
+// One codeword's decode, run by one block: the body of both kernels.  The
+// caller points L, P and R at the codeword's state, and rows at bucket 0's
+// per-edge tables in shared memory.  kCopyVn: the prologue copies the VN
+// table into vn_copy (shared memory) and the VN pass reads it there;
+// otherwise the VN pass reads the plan's own table in device memory.
+template <class CN, class QP, class MP, bool kRescaled, int kMaxDeg,
+          bool kCopyVn>
+__device__ __forceinline__ void flood_decode(
+    const float* __restrict__ llr, uint8_t* __restrict__ bits,
+    uint8_t* __restrict__ ok_out, int32_t* __restrict__ iu_out,
+    const Tables& tab, const int32_t* __restrict__ col_off, int Z, int mb,
+    int nb, int E, int iters, const CN& proto, const QP& quant,
+    float inv_alpha, int early_stop, float* L, float* P, uint32_t* vn_copy,
+    int32_t* rows, typename MP::T* R) {
   using Msg = typename MP::T;
   constexpr bool kGeneric = kMaxDeg == 0;
-  extern __shared__ float smem[];
   const int n = nb * Z;
   const int m = mb * Z;
-  float* L = smem;
-  float* P = L + n;
-  uint32_t* VN = reinterpret_cast<uint32_t*>(P + n);
-  int32_t* rows = reinterpret_cast<int32_t*>(VN + n);  // kGeneric only
-  Msg* R = reinterpret_cast<Msg*>(kGeneric ? rows + mb + 1 + 3 * E : rows);
+  const uint32_t* VN =
+      kCopyVn ? vn_copy : reinterpret_cast<const uint32_t*>(tab.vn_info);
   const int64_t b = blockIdx.x;
   const float* llr_b = llr + b * n;
 
@@ -297,7 +314,7 @@ bp_flood_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
     const int u = state_index(v, col_off, Z);
     L[u] = kRescaled ? x * inv_alpha : x;
     P[u] = x;
-    VN[v] = (uint32_t)tab.vn_info[v];
+    if constexpr (kCopyVn) vn_copy[v] = (uint32_t)tab.vn_info[v];
   }
   for (int t = threadIdx.x; t < E * Z; t += blockDim.x) R[t] = MP::store(0.0f);
   GenericRows g{rows, rows + mb + 1, rows + mb + 1 + E, rows + mb + 1 + 2 * E,
@@ -380,6 +397,51 @@ bp_flood_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
   }
 }
 
+// K1: the codeword's whole state in dynamic shared memory.
+template <class CN, class QP, class MP, bool kRescaled, int kMaxDeg>
+__global__ void __launch_bounds__(max_threads(kMaxDeg))
+bp_flood_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
+                uint8_t* __restrict__ ok_out, int32_t* __restrict__ iu_out,
+                Tables tab, const int32_t* __restrict__ col_off, int Z,
+                int mb, int nb, int E, int iters, CN proto, QP quant,
+                float inv_alpha, int early_stop) {
+  using Msg = typename MP::T;
+  constexpr bool kGeneric = kMaxDeg == 0;
+  extern __shared__ float smem[];
+  const int n = nb * Z;
+  float* L = smem;
+  float* P = L + n;
+  uint32_t* VN = reinterpret_cast<uint32_t*>(P + n);
+  int32_t* rows = reinterpret_cast<int32_t*>(VN + n);  // kGeneric only
+  Msg* R = reinterpret_cast<Msg*>(kGeneric ? rows + mb + 1 + 3 * E : rows);
+  flood_decode<CN, QP, MP, kRescaled, kMaxDeg, true>(
+      llr, bits, ok_out, iu_out, tab, col_off, Z, mb, nb, E, iters, proto,
+      quant, inv_alpha, early_stop, L, P, VN, rows, R);
+}
+
+// K1g: L, P and R of codeword b in device memory, at state + b * stride
+// (L and P n floats each, then R); the VN table read from the plan's;
+// bucket 0's two-pass rows, their per-edge tables in shared memory.
+template <class CN, class QP, class MP, bool kRescaled>
+__global__ void __launch_bounds__(kGenericThreads)
+bp_flood_gmem_kernel(const float* __restrict__ llr,
+                     uint8_t* __restrict__ bits, uint8_t* __restrict__ ok_out,
+                     int32_t* __restrict__ iu_out, Tables tab,
+                     const int32_t* __restrict__ col_off, int Z, int mb,
+                     int nb, int E, int iters, CN proto, QP quant,
+                     float inv_alpha, int early_stop,
+                     char* __restrict__ state, size_t stride) {
+  extern __shared__ float smem[];
+  const int n = nb * Z;
+  float* L = reinterpret_cast<float*>(state + blockIdx.x * stride);
+  float* P = L + n;
+  flood_decode<CN, QP, MP, kRescaled, 0, false>(
+      llr, bits, ok_out, iu_out, tab, col_off, Z, mb, nb, E, iters, proto,
+      quant, inv_alpha, early_stop, L, P, nullptr,
+      reinterpret_cast<int32_t*>(smem),
+      reinterpret_cast<typename MP::T*>(P + n));
+}
+
 struct Args {
   const float* llr;
   uint8_t* bits;
@@ -392,6 +454,8 @@ struct Args {
   int early_stop;
   size_t smem;
   cudaStream_t stream;
+  char* state;   // K1g's scratch (null: K1), `stride` bytes a codeword
+  size_t stride;
 };
 
 template <class CN, class QP, class MP, bool kRescaled, int kMaxDeg>
@@ -416,8 +480,30 @@ cudaError_t launch_bucket(const Args& a, const QP& quant) {
   return cudaGetLastError();
 }
 
+// K1g: kGenericThreads threads a codeword, bucket 0's per-edge tables in
+// shared memory (a.bucket and a.threads are K1's and do not apply).
+template <class CN, class QP, class MP, bool kRescaled>
+cudaError_t launch_gmem(const Args& a, const QP& quant) {
+  const size_t smem = (size_t)(a.mb + 1 + 3 * a.E) * sizeof(int32_t);
+  auto kernel = bp_flood_gmem_kernel<CN, QP, MP, kRescaled>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  CN proto;
+  proto.alpha = a.alpha;
+  proto.beta = a.beta;
+  kernel<<<a.batch, kGenericThreads, smem, a.stream>>>(
+      a.llr, a.bits, a.ok, a.iters_used, a.tab, a.col_off, a.Z, a.mb, a.nb,
+      a.E, a.iters, proto, quant, a.inv_alpha, a.early_stop, a.state,
+      a.stride);
+  return cudaGetLastError();
+}
+
 template <class CN, class MP, bool kRescaled = false, class QP = NoQuant>
 cudaError_t launch(const Args& a, QP quant = QP{}) {
+  if (a.state != nullptr) {
+    return launch_gmem<CN, QP, MP, kRescaled>(a, quant);
+  }
   switch (a.bucket) {
     case 8:
       return launch_bucket<CN, QP, MP, kRescaled, 8>(a, quant);
@@ -437,6 +523,25 @@ cudaError_t launch_algo(int algo, const Args& a) {
   if (algo == kSumProduct) return launch<SumProduct, MP>(a);
   if (algo == kSumProductFast) return launch<SumProductFast, MP>(a);
   return cudaErrorInvalidValue;
+}
+
+// The policies of one launch (ldpc_bp_flood's comment), then the kernel.
+cudaError_t launch_mode(int algo, const Args& a, int msg_bf16, int rescaled,
+                        int quantized, float step, float kmax, float lim_msg,
+                        float lim_post) {
+  if (quantized || rescaled) {
+    if (algo != kMinSum || msg_bf16 || (quantized && rescaled)) {
+      return cudaErrorInvalidValue;
+    }
+    if (rescaled) return launch<MinSumUnit, F32Msg, true>(a);
+    Quant quant;
+    if (!make_quant(step, kmax, lim_msg, lim_post, &quant)) {
+      return cudaErrorInvalidValue;
+    }
+    return launch<MinSum, F32Msg, false>(a, quant);
+  }
+  return msg_bf16 ? launch_algo<Bf16Msg>(algo, a)
+                  : launch_algo<F32Msg>(algo, a);
 }
 
 }  // namespace
@@ -485,20 +590,46 @@ int ldpc_bp_flood(int algo, const float* llr, uint8_t* bits, uint8_t* ok,
                col_off, batch, Z, mb, nb, E, bucket, threads, iters, alpha,
                beta, inv_alpha, early_stop,
                ldpc_bp_flood_smem_bytes(Z, mb, nb, E, bucket, msg_bf16),
-               (cudaStream_t)stream};
-  if (quantized || rescaled) {
-    if (algo != kMinSum || msg_bf16 || (quantized && rescaled)) {
-      return (int)cudaErrorInvalidValue;
-    }
-    if (rescaled) return (int)launch<MinSumUnit, F32Msg, true>(a);
-    Quant quant;
-    if (!make_quant(step, kmax, lim_msg, lim_post, &quant)) {
-      return (int)cudaErrorInvalidValue;
-    }
-    return (int)launch<MinSum, F32Msg, false>(a, quant);
+               (cudaStream_t)stream, nullptr, 0};
+  return (int)launch_mode(algo, a, msg_bf16, rescaled, quantized, step, kmax,
+                          lim_msg, lim_post);
+}
+
+// K1g, the device-memory form of ldpc_bp_flood for a code whose state
+// exceeds one block's shared memory: the same arguments and policies
+// without bucket and threads (it runs bucket 0's two-pass rows on
+// kGenericThreads threads a codeword), and `state`, scratch of batch *
+// `stride` bytes in device memory that the kernel overwrites: codeword
+// b's L and P (n floats each), then its R (E * Z messages of float32, or
+// bf16 with msg_bf16), at state + b * stride.  The caller sizes and
+// allocates it (flood_plan.flood_gmem_state_bytes; nothing is allocated
+// here).  A null or misaligned scratch, or a stride below that state or
+// not a multiple of 16, is refused.  Returns as ldpc_bp_flood.
+int ldpc_bp_flood_gmem(int algo, const float* llr, uint8_t* bits, uint8_t* ok,
+                       int32_t* iters_used, const int32_t* vn_info,
+                       const int32_t* cn_p, const int32_t* cn_r,
+                       const int32_t* cn_deg, const int32_t* row_ptr,
+                       const int32_t* e_p, const int32_t* e_r,
+                       const int32_t* e_shift, const int32_t* col_off,
+                       int batch, int Z, int mb, int nb, int E, int iters,
+                       float alpha, float beta, int early_stop, int msg_bf16,
+                       int rescaled, float inv_alpha, int quantized,
+                       float step, float kmax, float lim_msg, float lim_post,
+                       void* state, size_t stride, void* stream) {
+  const size_t need =
+      2 * (size_t)nb * Z * sizeof(float) +
+      (size_t)E * Z * (msg_bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+  if (state == nullptr || (uintptr_t)state % 16 || stride % 16 ||
+      stride < need) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)(msg_bf16 ? launch_algo<Bf16Msg>(algo, a)
-                        : launch_algo<F32Msg>(algo, a));
+  const Args a{llr, bits, ok, iters_used,
+               Tables{vn_info, cn_p, cn_r, cn_deg, row_ptr, e_p, e_r, e_shift},
+               col_off, batch, Z, mb, nb, E, 0, kGenericThreads, iters, alpha,
+               beta, inv_alpha, early_stop, 0, (cudaStream_t)stream,
+               (char*)state, stride};
+  return (int)launch_mode(algo, a, msg_bf16, rescaled, quantized, step, kmax,
+                          lim_msg, lim_post);
 }
 
 }  // extern "C"

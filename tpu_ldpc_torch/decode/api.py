@@ -24,10 +24,13 @@ Quantization with ``bitflip`` / ``wbf`` or the windowed schedule raises
 ValueError, as does ``window_sweep`` outside the windowed schedule, as in
 the JAX package.
 
-Long blocklengths: given a mesh (``dist/mesh.py``), ``build_decode_fn``
-sends a flooding float decode with impl='auto' whose state the flooding
-kernel cannot hold in one block's shared memory
-(``flood_plan.code_flood_smem_bytes`` above ``SMEM_LIMIT_BYTES``) to the
+Long blocklengths: a flooding decode whose state the flooding kernel
+cannot hold in one block's shared memory
+(``flood_plan.code_flood_smem_bytes`` above ``SMEM_LIMIT_BYTES``, NR BG1
+at Z = 384) runs, without a mesh, the flooding kernel's device-memory
+form (``bp_flood_gmem_kernel``, through ``build_cuda_decoder``), bit for
+bit with the shared-memory kernel.  Given a mesh (``dist/mesh.py``),
+``build_decode_fn`` sends such a float decode with impl='auto' to the
 ring decoder (``dist/ring.py``) when the code is banded (``is_banded``)
 and the ring can split it over the mesh (``fits_ring``), and to the
 row-striped partitioned decoder (``dist/partitioned.py``) otherwise.
@@ -64,10 +67,11 @@ def build_decode_fn(code: LdpcCode, cfg, device, mesh=None, *,
     (the throughput benchmark's fixed-work point).  Only the flooding and
     layered BP decoders of one device take it, and impl='twophase',
     early-terminating by construction, ignores it as the JAX package's
-    benchmark does.  mesh: a ``dist.mesh.Mesh``; a code the
-    flooding kernel cannot hold then decodes on the ring or the
+    benchmark does.  mesh: a ``dist.mesh.Mesh``; a code the flooding
+    kernel cannot hold in shared memory then decodes on the ring or the
     partitioned decoder (module docstring), which every rank of the mesh
-    calls with the same LLRs."""
+    calls with the same LLRs; without a mesh it takes the flooding
+    kernel's device-memory form."""
     device = resolve_device(device)
     impl = getattr(cfg, "impl", "auto")
     if not early_stop and (cfg.algo in ("bitflip", "wbf")

@@ -12,9 +12,18 @@ tensor it launches its kernel on the current stream or raises -- there is
 no fallback.  The TPU-only knobs (batch_tile, exit_block, unroll,
 interpret, dtype and the VMEM budget) have no counterpart.
 
-Each launch adds one to ``LAUNCHES[fn.kernel]``, and a launch in
-normalized coordinates also to ``LAUNCHES[fn.kernel + '_normalized']``
-(shift normalization is a mode of the same kernel body).  Kernel names:
+Flooding decoders take K1g (``bp_flood_gmem_kernel``) where the code's
+state exceeds one block's shared memory (``ldpc_bp_flood_smem_bytes``
+above ``flood_plan.SMEM_LIMIT_BYTES``, NR BG1 at Z = 384): every mode
+above, bit for bit with the shared-memory kernel, its state in a scratch
+buffer of ``flood_plan.flood_gmem_state_bytes`` a codeword that each call
+allocates (``torch.empty``, inside the span ``ldpc.decode.gmem``).  The
+layered and compressed schedules raise there, naming the flooding one.
+
+Each launch adds one to ``LAUNCHES[fn.kernel]``, a launch in normalized
+coordinates also to ``LAUNCHES[fn.kernel + '_normalized']`` (shift
+normalization is a mode of the same kernel body), and a launch of K1g
+also to ``LAUNCHES[fn.kernel + '_gmem']``.  Kernel names:
 
 - ``minsum_flood`` / ``minsum_layered``: K1 / K2, min-sum;
 - ``sumproduct_flood`` / ``sumproduct_layered``: K3, exact sum-product;
@@ -34,12 +43,12 @@ import torch
 
 from tpu_ldpc_torch.codes.code import LdpcCode
 from tpu_ldpc_torch.decode.flood_plan import (
-    SMEM_LIMIT_BYTES, compressed_plan, flood_plan)
+    SMEM_LIMIT_BYTES, compressed_plan, flood_gmem_state_bytes, flood_plan)
 from tpu_ldpc_torch.decode.layered_plan import layered_plan
 from tpu_ldpc_torch.decode.normalize import coordinates
 from tpu_ldpc_torch.decode.reference import (
     build_decoder, is_bf16, quant_params)
-from tpu_ldpc_torch.spans import spanned
+from tpu_ldpc_torch.spans import span, spanned
 
 # ldpc::Algo in bp_common.cuh
 _ALGO_IDS = {"minsum": 0, "sumproduct": 1, "sumproduct-fast": 2}
@@ -70,8 +79,9 @@ def _all_names():
         names.append(kernel_name("minsum", sched, quantized=True))
     names.append(kernel_name("minsum", "flooding", rescaled=True))
     normalized = [f"{name}_normalized" for name in names]
+    gmem = [f"{name}_gmem" for name in names if "_flood" in name]
     return names + [kernel_name("minsum", "flooding", compressed=True)] \
-        + normalized
+        + normalized + gmem
 
 
 # kernel name -> launches since the last reset_launches()
@@ -151,10 +161,15 @@ def build_cuda_decoder(
             smem = lib.ldpc_bp_layered_smem_bytes(
                 code.Z, code.mb, code.nb, E, plan.bucket, plan.group,
                 plan.idx_stride, plan.r_stride, bf16)
-        if smem > SMEM_LIMIT_BYTES:
+        # above the limit a flooding decode keeps its state in device
+        # memory (K1g); no other schedule has such a form
+        gmem = smem > SMEM_LIMIT_BYTES
+        if gmem and not flooding:
             raise ValueError(
                 f"{code.name}: {name} decoder state {smem} B exceeds the "
-                f"{SMEM_LIMIT_BYTES} B of shared memory one block may use")
+                f"{SMEM_LIMIT_BYTES} B of shared memory one block may use; "
+                f"schedule='flooding' without compressed state takes such "
+                f"a code, its state in device memory")
         if llr.device not in tables:
             tables[llr.device] = (
                 torch.tensor(col_off, dtype=torch.int32, device=llr.device),
@@ -182,6 +197,17 @@ def build_cuda_decoder(
                     code.layout.max_row_deg, int(plan.one_check),
                     plan.threads, int(iters), float(alpha), float(beta),
                     int(bool(early_stop)), stream)
+            elif gmem:
+                with span("ldpc.decode.gmem"):
+                    stride = flood_gmem_state_bytes(code.Z, code.nb, E, bf16)
+                    state = torch.empty(batch * stride, dtype=torch.uint8,
+                                        device=llr.device)
+                    err = lib.ldpc_bp_flood_gmem(
+                        _ALGO_IDS[algo], *outs, *tab_ptrs, coff_ptr,
+                        batch, code.Z, code.mb, code.nb, E, int(iters),
+                        float(alpha), float(beta), int(bool(early_stop)),
+                        int(bf16), int(bool(rescaled)), inv_alpha, *qargs,
+                        state.data_ptr(), stride, stream)
             elif flooding:
                 err = lib.ldpc_bp_flood(
                     _ALGO_IDS[algo], *outs, *tab_ptrs, coff_ptr,
@@ -197,7 +223,7 @@ def build_cuda_decoder(
                     plan.r_stride, int(iters), float(alpha), float(beta),
                     int(bool(early_stop)), int(bf16), *qargs, stream)
         check(lib, err, f"{name} launch")
-        for counter in counters:
+        for counter in counters + ((f"{name}_gmem",) if gmem else ()):
             LAUNCHES[counter] += 1
         return bits, ok, iu
 

@@ -31,6 +31,13 @@ code (a row above 32, more checks than threads) takes bucket 0: the
 two-pass loop over any number of checks per thread and any row degree,
 which reads the per-edge tables ``row_ptr``, ``e_p`` (col*Z), ``e_r``
 (rslot*Z) and ``e_shift`` from shared memory.
+
+A code whose block state (``flood_smem_bytes`` in its bucket) exceeds
+``SMEM_LIMIT_BYTES`` runs the device-memory kernel (``bp_flood_gmem_kernel``)
+on the same plan: L, P and R of each codeword in a scratch buffer of
+``flood_gmem_state_bytes`` a codeword, the VN table read from ``vn_info``
+itself, and bucket 0's two-pass rows over ``row_ptr`` / ``e_*`` whatever
+the bucket.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ GENERIC_THREADS = 256  # bucket 0
 PACK_LIMIT = 1 << 16   # buckets above 8: indices in 16 bits
 VN_BASE_BITS = 17      # vn_info = (col_deg << 17) | base, as uint32
 SMEM_LIMIT_BYTES = 232_448  # 227 KB: the most one Hopper block may use
+GMEM_STATE_ALIGN = 256      # the device-memory kernel: bytes a state rounds to
 
 
 def flood_smem_bytes(Z: int, mb: int, nb: int, E: int, bucket: int,
@@ -69,6 +77,16 @@ def code_flood_smem_bytes(code: LdpcCode) -> int:
     m, n, E = lay.mb * lay.Z, lay.nb * lay.Z, lay.E
     return flood_smem_bytes(lay.Z, lay.mb, lay.nb, E,
                             choose_bucket(lay.max_row_deg, m, n, E * lay.Z))
+
+
+def flood_gmem_state_bytes(Z: int, nb: int, E: int,
+                           msg_bf16: bool = False) -> int:
+    """Device memory of one codeword's state in the device-memory kernel:
+    L and P (4 B a variable each) and R in float32 or bf16, rounded up to
+    GMEM_STATE_ALIGN.  The decoder allocates batch times this and passes
+    it to ldpc_bp_flood_gmem as the stride between codewords."""
+    nbytes = 2 * nb * Z * 4 + E * Z * (2 if msg_bf16 else 4)
+    return -(-nbytes // GMEM_STATE_ALIGN) * GMEM_STATE_ALIGN
 
 
 def choose_bucket(max_row_deg: int, m: int, n: int, r_slots: int) -> int:
@@ -126,8 +144,8 @@ def _vn_info(lay, cstart):
     (cstart[j]*Z + z), the first of its column's edge slots."""
     Z = lay.Z
     col_deg = np.asarray(lay.col_deg, dtype=np.int64)
-    # vn_info's limits: 2^17 two-byte messages alone exceed a block's
-    # shared memory; a column of degree 2^15 needs 32768 block-rows
+    # vn_info's limits: 2^17 messages (NR BG1 at Z = 384 has 74,112); a
+    # column of degree 2^15 needs 32768 block-rows
     if lay.E * Z >= 1 << VN_BASE_BITS or int(col_deg.max()) >= 1 << (
             32 - VN_BASE_BITS):
         raise ValueError(f"{lay.E * Z} messages or a column of degree "

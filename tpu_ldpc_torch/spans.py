@@ -23,6 +23,9 @@ The spans, outermost first (each nests in the one above it):
   ``ldpc.decode`` (every call of a ``build_decode_fn`` decoder) and
   ``ldpc.mc.count``; on the card ``ldpc.mc.encode`` holds the one kernel
   that encodes and computes the LLRs, and there is no ``ldpc.mc.channel``;
+- ``ldpc.decode.gmem``: inside ``ldpc.decode``, the flooding decoder's
+  device-memory form (``decode/cuda_bp.py``): its scratch allocation and
+  launch;
 - ``ldpc.build``: a build (nvcc, or a cache-missed builder of a step,
   decoder, encoder or kernel plan), wherever it happens.
 """
