@@ -1704,13 +1704,15 @@ def _gmem_path(dev, smi):
     decoder (impl='torch'), bits, ok and iters_used equal; kernel B's
     counters, and the counters of build_mc_step's own call on that batch,
     against plain_counters of the plain decode; decode() on the LLRs;
-    every decode launches minsum_flood_gmem and no shared-memory kernel.
-    Then K1g's ms a batch at 50 iterations ET off (and ET on at the cell's
-    Eb/N0) beside its bound and the plain decoder's.  Returns K1g's row of
-    the kernel table."""
+    every decode launches minsum_flood_gmem with L and P in shared memory
+    (minsum_flood_gmem_smem) and no shared-memory kernel.  Then K1g's ms a
+    batch at 50 iterations ET off (and ET on at the cell's Eb/N0) beside
+    its bound and the plain decoder's, in its own placement and with L and
+    P in the scratch (the limit at 0), which must give the same bits.
+    Returns K1g's row of the kernel table."""
     import torch
 
-    from tpu_ldpc_torch.decode import decode
+    from tpu_ldpc_torch.decode import cuda_bp, decode
     from tpu_ldpc_torch.decode.api import build_decode_fn
     from tpu_ldpc_torch.decode.cuda_bp import (
         LAUNCHES, build_cuda_decoder, reset_launches)
@@ -1757,7 +1759,8 @@ def _gmem_path(dev, smi):
             or not torch.equal(step_counts, want_counts)):
         raise AssertionError(f"[gmem] K1g's path differs from the plain "
                              f"versions at {GMEM_SHAPE}")
-    if launches != {"minsum_flood": 3, "minsum_flood_gmem": 3}:
+    if launches != {"minsum_flood": 3, "minsum_flood_gmem": 3,
+                    "minsum_flood_gmem_smem": 3}:
         raise AssertionError(f"[gmem] 3 decodes: launches {launches}")
 
     run_off = build_cuda_decoder(code, "minsum", 50, 0.75, 0.0, "flooding",
@@ -1766,26 +1769,49 @@ def _gmem_path(dev, smi):
                                 True, normalize=False)
     plain_off = build_decoder(code, "minsum", 50, 0.75, 0.0, "flooding",
                               False)
-    run_off(llr), run_on(llr)
+    limit = cuda_bp.SMEM_LIMIT_BYTES
+
+    def scratch_lp(run):
+        """`run` with L and P in the scratch: the limit at 0 for the call."""
+        def call(x):
+            cuda_bp.SMEM_LIMIT_BYTES = 0
+            try:
+                return run(x)
+            finally:
+                cuda_bp.SMEM_LIMIT_BYTES = limit
+        return call
+
+    reset_launches()
+    outs = [run(llr) for run in (run_off, scratch_lp(run_off), run_on,
+                                 scratch_lp(run_on))]
     torch.cuda.synchronize()
+    if (_diff(outs[0], outs[1])[0] or _diff(outs[2], outs[3])[0]
+            or LAUNCHES["minsum_flood_gmem_smem"] != 2):
+        raise AssertionError("[gmem] the placements of L and P differ")
     k1 = _cuda_time_ms(lambda: run_off(llr), 5)
+    s1 = _cuda_time_ms(lambda: scratch_lp(run_off)(llr), 5)
     p_ms = _cuda_time_ms(lambda: plain_off(llr), 1)
+    s2 = _cuda_time_ms(lambda: scratch_lp(run_off)(llr), 5)
     k2 = _cuda_time_ms(lambda: run_off(llr), 5)
     k_on = _cuda_time_ms(lambda: run_on(llr), 5)
-    k_ms = (k1 + k2) / 2
+    s_on = _cuda_time_ms(lambda: scratch_lp(run_on)(llr), 5)
+    k_ms, s_ms = (k1 + k2) / 2, (s1 + s2) / 2
     bound, by = _bound_ms(code, b, "minsum", b * 50)
     bound_on, by_on = _bound_ms(code, b, "minsum", iters_on)
     print(f"[gmem time] minsum_flood_gmem {code.name} b={b} 50 it ET off: "
-          f"kernel {k_ms:.4f} ms/batch ({k1:.4f}, {k2:.4f}), bound "
-          f"{bound:.5f} ms ({by}, {bound / k_ms:.3%} of it); plain "
-          f"{p_ms:.4f} ms; {ebn0} dB ET on (mean iters {iters_on / b:.4f}): "
-          f"{k_on:.4f} ms, bound {bound_on:.5f} ms ({by_on}); {smi}")
+          f"L and P in shared memory {k_ms:.4f} ms/batch ({k1:.4f}, "
+          f"{k2:.4f}), in the scratch {s_ms:.4f} ms/batch ({s1:.4f}, "
+          f"{s2:.4f}); bound {bound:.5f} ms ({by}, {bound / k_ms:.3%} / "
+          f"{bound / s_ms:.3%} of them); plain {p_ms:.4f} ms; {ebn0} dB ET "
+          f"on (mean iters {iters_on / b:.4f}): {k_on:.4f} / {s_on:.4f} ms, "
+          f"bound {bound_on:.5f} ms ({by_on}); {smi}")
     return {"name": "minsum_flood_gmem", "route": "cuda",
             "source": SRC + "bp_flood.cu",
             "replaces": PALLAS + "514 flooding kernel, state beyond one "
                                  "block's shared memory",
             "launches": launches["minsum_flood_gmem"], "max_abs_err": err,
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+            "ms": k_ms, "ms_scratch_lp": s_ms, "plain_ms": p_ms,
+            "bound_ms": bound,
             "bound_by": by, "library_ms": None,
             "shape": [code.name, b, ebn0]}
 

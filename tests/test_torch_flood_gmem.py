@@ -8,6 +8,10 @@ itself.
   device memory a codeword; NR BG1 at Z = 384 (K_cb = 8448) and the
   NR-like registry cells above the limit at the NR lifting sizes go
   there, every other cell keeps the shared-memory kernel and its bucket.
+- The placement (``gmem_placement``): every one of those cells keeps L
+  and P in shared memory beside the row tables, R alone in the scratch,
+  on blocks of ``GMEM_SHARED_LP_THREADS``; a code whose L and P do not
+  fit keeps them in the scratch, on blocks of ``GENERIC_THREADS``.
 - A torch-op decoder in K1g's order of operations
   (``test_torch_flood_tables.table_decoder`` on the two-pass path: each
   row from ``row_ptr`` / ``e_p`` / ``e_r`` / ``e_shift``, the VN sum from
@@ -15,8 +19,9 @@ itself.
   plan's tables, equals the plain decoder's posterior and the
   golden model bit for bit on a punctured NR-like code, min-sum and
   sumproduct-fast, ET on and off, with zero and -0.0 LLRs.
-- On the card: K1g against the shared-memory kernel and the plain
-  decoder on codes forced onto the route, and on Z = 384 itself; the MC
+- On the card: K1g in both placements against the shared-memory kernel
+  and the plain decoder on codes forced onto the route, and on Z = 384
+  itself; the MC
   batch kernels at Z = 384; ``decode()`` and the MC step launching K1g;
   the span ``ldpc.decode.gmem``; the C entry's refusals.  On a machine
   with the card:
@@ -35,9 +40,10 @@ from tpu_ldpc_torch.codes.nrlike import (
     M_BY_RATE, M_BY_RATE2, nrlike_adapt, nrlike_code)
 from tpu_ldpc_torch.decode import cuda_bp
 from tpu_ldpc_torch.decode.flood_plan import (
-    GENERIC_THREADS, GMEM_STATE_ALIGN, SMEM_LIMIT_BYTES, VN_BASE_BITS,
-    choose_bucket, code_flood_smem_bytes, flood_gmem_state_bytes,
-    flood_plan, flood_smem_bytes)
+    GENERIC_THREADS, GMEM_SHARED_LP_THREADS, GMEM_STATE_ALIGN,
+    SMEM_LIMIT_BYTES, VN_BASE_BITS, choose_bucket, code_flood_smem_bytes,
+    flood_gmem_smem_bytes, flood_gmem_state_bytes, flood_plan,
+    flood_smem_bytes, gmem_placement)
 from tpu_ldpc_torch.decode.normalize import coordinates
 from tpu_ldpc_torch.decode.reference import build_decoder
 from test_torch_flood_tables import table_decoder
@@ -108,6 +114,83 @@ def test_registry_cells_route_by_their_state_bytes(bg, rate):
         assert plan.bucket == choose_bucket(deg, lay.m, lay.n, E * Z)
         assert (code_flood_smem_bytes(code) > SMEM_LIMIT_BYTES) == (
             first is not None and Z >= first)
+
+
+def r_bytes(Z, E):
+    """R alone (4 B a message), rounded up to GMEM_STATE_ALIGN."""
+    raw = 4 * E * Z
+    return raw + (-raw) % GMEM_STATE_ALIGN
+
+
+def test_nr_bg1_z384_keeps_l_and_p_in_shared_memory():
+    """Z = 384's placement: L, P and the row tables in 143,728 B of shared
+    memory, R alone (296,448 B a codeword, 148,224 B in bf16) in the
+    scratch, 1024 threads a block; with the limit below those bytes, the
+    placement of L and P in the scratch."""
+    assert 2 * 17664 * 4 + (24 + 1 + 3 * 193) * 4 == 143_728
+    place = gmem_placement(384, 24, 46, 193)
+    assert (place.shared_lp, place.threads, place.stride) == (
+        True, GMEM_SHARED_LP_THREADS, 296_448)
+    assert flood_gmem_smem_bytes(384, 24, 46, 193, True) == 143_728
+    assert flood_gmem_smem_bytes(384, 24, 46, 193, False) == 2416
+    assert GMEM_SHARED_LP_THREADS == 1024
+    assert gmem_placement(384, 24, 46, 193, True).stride == 148_224
+    assert r_bytes(384, 193) == 296_448 == 74112 * 4
+    # 132 SMs' resident R fits the 50 MB L2
+    assert 132 * place.stride < 50 * 2**20
+    for limit in (0, 143_727):
+        place = gmem_placement(384, 24, 46, 193, limit=limit)
+        assert (place.shared_lp, place.threads, place.stride) == (
+            False, GENERIC_THREADS, 437_760)
+    assert gmem_placement(384, 24, 46, 193, limit=143_728).shared_lp
+
+
+@pytest.mark.parametrize("bg,rate", CELLS, ids=[f"nr{b}-{r}" for b, r in CELLS])
+def test_registry_cells_above_the_limit_keep_l_and_p_in_shared_memory(
+        bg, rate):
+    """Every NR-like cell that takes K1g at an NR lifting size keeps L and
+    P in shared memory there, with R alone in the scratch, in float32
+    and bf16 messages."""
+    small = nrlike_code(rate, 16, bg=bg).layout
+    mb, nb, E = small.mb, small.nb, small.E
+    first = FIRST_GMEM_Z[(bg, rate)]
+    for Z in (Z for Z in NR_LIFTS if first and Z >= first):
+        smem = 8 * nb * Z + 4 * (mb + 1 + 3 * E)
+        assert smem == flood_gmem_smem_bytes(Z, mb, nb, E, True)
+        assert smem <= SMEM_LIMIT_BYTES
+        for bf16 in (False, True):
+            place = gmem_placement(Z, mb, nb, E, bf16)
+            assert (place.shared_lp, place.threads) == (
+                True, GMEM_SHARED_LP_THREADS)
+            assert place.stride == flood_gmem_state_bytes(
+                Z, nb, E, bf16, shared_lp=True)
+            assert place.stride == (r_bytes(Z, E) if not bf16 else
+                                    -(-2 * E * Z // GMEM_STATE_ALIGN)
+                                    * GMEM_STATE_ALIGN)
+
+
+@pytest.mark.parametrize("nb,E,shared_lp", [
+    (68, 316, True),   # NR BG1's full 68 columns at Z = 384
+    (74, 316, True),   # the widest that fits beside these row tables
+    (75, 316, False),  # one block-column more
+    (90, 400, False)])
+def test_placement_follows_the_bytes_of_l_and_p(nb, E, shared_lp):
+    """Z = 384, 46 block-rows: L and P stay in shared memory exactly while
+    they and the row tables fit SMEM_LIMIT_BYTES; beyond, they take the
+    scratch (L, P and R: 8n + 4EZ bytes a codeword) on GENERIC_THREADS."""
+    Z, mb = 384, 46
+    place = gmem_placement(Z, mb, nb, E)
+    tables = 4 * (mb + 1 + 3 * E)
+    assert (8 * nb * Z + tables <= SMEM_LIMIT_BYTES) == shared_lp
+    assert place.shared_lp == shared_lp
+    if shared_lp:
+        assert (place.threads, place.stride) == (
+            GMEM_SHARED_LP_THREADS, r_bytes(Z, E))
+    else:
+        assert (place.threads, place.stride) == (
+            GENERIC_THREADS, state_bytes(Z, nb, E))
+    assert flood_gmem_smem_bytes(Z, mb, nb, E, shared_lp) == (
+        8 * nb * Z + tables if shared_lp else tables)
 
 
 def test_cells_within_the_limit_keep_the_shared_memory_kernel():
@@ -225,15 +308,37 @@ MODES = {
 }
 
 
+PLACEMENTS = ("shared-lp", "scratch-lp")
+
+
+def force_gmem(monkeypatch, code, placement):
+    """Lowers the limit so that `code` takes K1g in `placement`: to the
+    bytes of its L, P and row tables (below the shared-memory kernel's
+    state, which adds R) for L and P in shared memory, to 0 for L and P
+    in the scratch."""
+    lay = code.layout
+    limit = (flood_gmem_smem_bytes(code.Z, lay.mb, lay.nb, lay.E, True)
+             if placement == "shared-lp" else 0)
+    assert limit < code_flood_smem_bytes(code)
+    monkeypatch.setattr(cuda_bp, "SMEM_LIMIT_BYTES", limit)
+
+
+def gmem_launches(kernel):
+    return (cuda_bp.LAUNCHES[f"{kernel}_gmem"],
+            cuda_bp.LAUNCHES[f"{kernel}_gmem_smem"])
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("placement", PLACEMENTS)
 @pytest.mark.parametrize("early_stop", [True, False])
 @pytest.mark.parametrize("mode", sorted(MODES))
 @pytest.mark.parametrize("key", sorted(FORCED))
 def test_gmem_kernel_on_codes_forced_onto_it(cuda, monkeypatch, key, mode,
-                                             early_stop):
-    """With the limit at 0 every code takes K1g: it equals the
-    shared-memory kernel bit for bit in every mode, and the plain decoder
-    in every mode but exact sum-product (tanhf / logf)."""
+                                             early_stop, placement):
+    """With the limit lowered every code takes K1g, in either placement of
+    L and P: it equals the shared-memory kernel bit for bit in every mode,
+    and the plain decoder in every mode but exact sum-product (tanhf /
+    logf)."""
     code = FORCED[key]()
     kw = dict(normalize=False)
     kw.update(MODES[mode])
@@ -241,11 +346,11 @@ def test_gmem_kernel_on_codes_forced_onto_it(cuda, monkeypatch, key, mode,
     fn = build_cuda_decoder_for(code, algo, early_stop, kw)
     llr = noisy(code, 200, 1.5, 3, cuda, 2 if key.startswith("nr") else 0)
     want = fn(llr)
-    before = dict(cuda_bp.LAUNCHES)
-    monkeypatch.setattr(cuda_bp, "SMEM_LIMIT_BYTES", 0)
+    gmem, smem = gmem_launches(fn.kernel)
+    force_gmem(monkeypatch, code, placement)
     got = fn(llr)
-    assert cuda_bp.LAUNCHES[f"{fn.kernel}_gmem"] == before[
-        f"{fn.kernel}_gmem"] + 1
+    assert gmem_launches(fn.kernel) == (
+        gmem + 1, smem + (placement == "shared-lp"))
     assert_same(got, want)
     if algo != "sumproduct":
         assert_same(got, build_decoder(code, algo, 30, ALPHA, 0.0,
@@ -263,15 +368,22 @@ def z384():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("placement", PLACEMENTS)
 @pytest.mark.parametrize("early_stop", [True, False])
 @pytest.mark.parametrize("algo", ["minsum", "sumproduct-fast"])
-def test_gmem_kernel_z384_equals_plain(cuda, z384, algo, early_stop):
+def test_gmem_kernel_z384_equals_plain(cuda, monkeypatch, z384, algo,
+                                       early_stop, placement):
+    """Z = 384 in its own placement (L and P in shared memory) and with
+    the limit at 0 (L and P in the scratch)."""
     llr = noisy(z384, 64, 1.2, 5, cuda, 2)
     fn = cuda_bp.build_cuda_decoder(z384, algo, 50, ALPHA, 0.0, "flooding",
                                     early_stop, normalize=False)
-    before = cuda_bp.LAUNCHES[f"{fn.kernel}_gmem"]
+    if placement == "scratch-lp":
+        monkeypatch.setattr(cuda_bp, "SMEM_LIMIT_BYTES", 0)
+    gmem, smem = gmem_launches(fn.kernel)
     got = fn(llr)
-    assert cuda_bp.LAUNCHES[f"{fn.kernel}_gmem"] == before + 1
+    assert gmem_launches(fn.kernel) == (
+        gmem + 1, smem + (placement == "shared-lp"))
     assert_same(got, build_decoder(z384, algo, 50, ALPHA, 0.0, "flooding",
                                    early_stop)(llr))
     assert 0 < int(got[1].sum())
@@ -286,17 +398,16 @@ def test_decode_and_mc_step_take_the_gmem_kernel(cuda, z384):
     from tpu_ldpc_torch.sim.mc import DecodeCfg, build_mc_step
 
     llr = noisy(z384, 16, 1.2, 7, cuda, 2)
-    before = dict(cuda_bp.LAUNCHES)
+    gmem, smem = gmem_launches("minsum_flood")
     bits, ok, iu = decode(z384, llr)
-    assert cuda_bp.LAUNCHES["minsum_flood_gmem"] == before[
-        "minsum_flood_gmem"] + 1
+    assert gmem_launches("minsum_flood") == (gmem + 1, smem + 1)
     assert bits.device.type == "cuda"
     adapt = nrlike_adapt(z384)
     step = build_mc_step(z384, DecodeCfg(), 64, 2, adapt, device=cuda)
-    before = dict(cuda_bp.LAUNCHES)
+    gmem, smem = gmem_launches("minsum_flood")
     got = step(2**31 + 3, 0, 1.2, 0).tolist()
-    assert cuda_bp.LAUNCHES["minsum_flood_gmem"] == before[
-        "minsum_flood_gmem"] + 2
+    # every K1g launch of the step keeps L and P in shared memory
+    assert gmem_launches("minsum_flood") == (gmem + 2, smem + 2)
     plain = build_mc_step(z384, DecodeCfg(impl="torch"), 64, 2, adapt,
                           device=cuda)
     assert got == plain(2**31 + 3, 0, 1.2, 0).tolist()
@@ -362,12 +473,20 @@ def test_other_schedules_refuse_naming_flooding(cuda, monkeypatch, z384,
 @pytest.mark.cuda
 def test_gmem_entry_refuses_bad_arguments(cuda, z384):
     """ldpc_bp_flood_gmem refuses a missing or misaligned scratch, a stride
-    below a codeword's state or not a multiple of 16, and the mode
-    combinations ldpc_bp_flood refuses, launching nothing."""
+    below a codeword's state (L, P and R, or R alone with L and P in
+    shared memory) or not a multiple of 16, a thread count that is not a
+    positive multiple of 32 within the placement's bound, and the mode
+    combinations ldpc_bp_flood refuses, launching nothing.  Its shared
+    memory is the plan's."""
     from tpu_ldpc_torch._build import load_library
 
     lib = load_library("bp_flood")
     code = LdpcCode.judged()
+    lay = code.layout
+    for shared_lp in (0, 1):
+        assert lib.ldpc_bp_flood_gmem_smem_bytes(
+            code.Z, code.mb, code.nb, lay.E, shared_lp) == \
+            flood_gmem_smem_bytes(code.Z, code.mb, code.nb, lay.E, shared_lp)
     plan = flood_plan(code, coordinates(code, False)[0])
     tabs = [torch.from_numpy(np.array(x)).to(cuda)
             for x in plan.tables().values()]
@@ -375,29 +494,39 @@ def test_gmem_entry_refuses_bad_arguments(cuda, z384):
     out = torch.empty((4, code.n), dtype=torch.uint8, device=cuda)
     ok = torch.empty(4, dtype=torch.bool, device=cuda)
     iu = torch.empty(4, dtype=torch.int32, device=cuda)
-    stride = flood_gmem_state_bytes(code.Z, code.nb, code.layout.E)
-    need = 8 * code.n + 4 * code.layout.E * code.Z  # L, P and R
+    stride = flood_gmem_state_bytes(code.Z, code.nb, lay.E)
+    need = 8 * code.n + 4 * lay.E * code.Z  # L, P and R
+    need_r = 4 * lay.E * code.Z             # R alone
     state = torch.empty(4 * stride + 16, dtype=torch.uint8, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def call(algo, bf16, rescaled, quantized, step, ptr, stride=stride):
+    def call(algo, bf16, rescaled, quantized, step, ptr, stride=stride,
+             shared_lp=0, threads=GENERIC_THREADS):
         return lib.ldpc_bp_flood_gmem(
             algo, llr.data_ptr(), out.data_ptr(), ok.data_ptr(),
             iu.data_ptr(), *[t.data_ptr() or None for t in tabs], None, 4,
-            code.Z, code.mb, code.nb, code.layout.E, 5, 0.75, 0.0, 1, bf16,
-            rescaled, 1.0 / 0.75, quantized, step, 31.0, 7.75, 31.75, ptr,
-            stride, stream)
+            code.Z, code.mb, code.nb, lay.E, 5, 0.75, 0.0, 1, bf16,
+            rescaled, 1.0 / 0.75, quantized, step, 31.0, 7.75, 31.75,
+            shared_lp, threads, ptr, stride, stream)
 
     base = state.data_ptr()
-    for args in ((0, 0, 0, 0, 0.25, None),  # no scratch
-                 (0, 0, 0, 0, 0.25, base + 4),  # misaligned
-                 (0, 0, 0, 0, 0.25, base, need - 16),  # stride too small
-                 (0, 0, 0, 0, 0.25, base, need + 8),  # stride not 16-aligned
-                 (2, 0, 0, 1, 0.25, base),  # quantized spfast
-                 (0, 1, 1, 0, 0.25, base),  # rescaled bf16
-                 (0, 0, 0, 1, 0.3, base)):  # step not 2^k
-        assert call(*args) != 0
-    assert need % 16 == 0 and need <= stride
+    lp = dict(shared_lp=1, threads=GMEM_SHARED_LP_THREADS)
+    for args, kw in (((0, 0, 0, 0, 0.25, None), {}),  # no scratch
+                     ((0, 0, 0, 0, 0.25, base + 4), {}),  # misaligned
+                     ((0, 0, 0, 0, 0.25, base, need - 16), {}),  # too small
+                     ((0, 0, 0, 0, 0.25, base, need + 8), {}),  # stride % 16
+                     ((0, 0, 0, 0, 0.25, base, need_r - 16), lp),  # below R
+                     ((0, 0, 0, 0, 0.25, base), dict(threads=0)),
+                     ((0, 0, 0, 0, 0.25, base), dict(threads=48)),
+                     ((0, 0, 0, 0, 0.25, base), dict(threads=512)),  # > 256
+                     ((0, 0, 0, 0, 0.25, base), dict(lp, threads=1056)),
+                     ((2, 0, 0, 1, 0.25, base), {}),  # quantized spfast
+                     ((0, 1, 1, 0, 0.25, base), {}),  # rescaled bf16
+                     ((0, 0, 0, 1, 0.3, base), lp)):  # step not 2^k
+        assert call(*args, **kw) != 0, (args, kw)
+    assert need % 16 == 0 and need <= stride and need_r % 16 == 0
     assert call(0, 0, 0, 0, 0.25, base, need) == 0
     assert call(0, 0, 0, 0, 0.25, base) == 0
+    assert call(0, 0, 0, 0, 0.25, base, need_r, **lp) == 0
+    assert call(0, 0, 0, 0, 0.25, base, need_r, shared_lp=1, threads=32) == 0
     torch.cuda.synchronize()

@@ -149,10 +149,13 @@ def _declare(lib) -> None:
             i, f, f, i,          # iters, alpha, beta, early_stop
             i, i, f,             # msg_bf16, rescaled, inv_alpha
             i, f, f, f, f,       # quantized, step, kmax, lim_msg, lim_post
+            i, i,                # shared_lp, threads
             p, ctypes.c_size_t,  # state, bytes a codeword
             p,                   # stream
         ]
         lib.ldpc_bp_flood_gmem.restype = ctypes.c_int
+        lib.ldpc_bp_flood_gmem_smem_bytes.argtypes = [i] * 5
+        lib.ldpc_bp_flood_gmem_smem_bytes.restype = ctypes.c_size_t
     if hasattr(lib, "ldpc_bp_layered"):
         lib.ldpc_bp_layered.argtypes = [
             i,                   # algo

@@ -108,17 +108,26 @@
 //
 // K1g, bp_flood_gmem_kernel: a code whose state exceeds one block's
 // shared memory (decode/flood_plan.py's SMEM_LIMIT_BYTES; NR BG1 at
-// Z = 384 needs 510,832 B) runs the same body, flood_decode, with L, P
-// and R in a slice of a scratch buffer in device memory, one slice a
-// codeword, which the caller allocates.  The VN table is the same for
-// every codeword, so the VN pass reads the plan's own copy in device
-// memory instead of a copy per codeword; only bucket 0's per-edge tables
-// sit in shared memory, and the rows take bucket 0's two-pass form
-// whatever the code's bucket.  Every policy above runs there in the same
-// order of operations, so K1g equals K1 bit for bit on any code both can
-// hold.  Its loads and stores go through L1 and L2; with hundreds of
-// codewords resident (0.44 MB of state each at Z = 384) the state does
-// not stay in the 50 MB L2, so device-memory bandwidth bounds it.
+// Z = 384 needs 510,832 B) runs the same body, flood_decode, with R in a
+// slice of a scratch buffer in device memory, one slice a codeword, which
+// the caller allocates.  The VN table is the same for every codeword, so
+// the VN pass reads the plan's own copy in device memory instead of a copy
+// per codeword; bucket 0's per-edge tables sit in shared memory, and the
+// rows take bucket 0's two-pass form whatever the code's bucket.  Every
+// policy above runs there in the same order of operations, so K1g equals
+// K1 bit for bit on any code both can hold.  Two placements of L and P,
+// picked by the plan from the sizes (flood_plan.gmem_placement):
+//   * shared_lp: L and P in shared memory beside the row tables (143,728 B
+//     at Z = 384), R alone in the slice, one block of 1024 threads an SM.
+//     The P gathers of the CN pass and the VN pass's L hit shared memory,
+//     and the resident codewords' R (132 x 296,448 B = 39.1 MB) fits the
+//     50 MB L2, which serves R's loads and stores instead of device
+//     memory.  The LLRs, read once, load evict-first (__ldcs) so they do
+//     not push R out of the L2.
+//   * otherwise (L and P beyond shared memory too): L, P and R in the
+//     slice, 256 threads a block.  With several codewords resident on
+//     each SM (0.44 MB of state each at Z = 384) the state does not stay
+//     in the L2, so device-memory bandwidth bounds it.
 
 #include "bp_common.cuh"
 
@@ -134,6 +143,9 @@ struct Tables {
 };
 
 constexpr int kGenericThreads = 256;
+// K1g with L and P in shared memory: the most threads of its one block an
+// SM (flood_plan.GMEM_SHARED_LP_THREADS is what the plan launches)
+constexpr int kSharedLPThreads = 1024;
 constexpr int kVnBaseBits = 17;  // vn_info = (col_deg << 17) | R base
 constexpr uint32_t kVnBaseMask = (1u << kVnBaseBits) - 1;
 constexpr int kPackLimit = 1 << 16;
@@ -288,11 +300,13 @@ struct GenericRows {
 
 // One codeword's decode, run by one block: the body of both kernels.  The
 // caller points L, P and R at the codeword's state, and rows at bucket 0's
-// per-edge tables in shared memory.  kCopyVn: the prologue copies the VN
-// table into vn_copy (shared memory) and the VN pass reads it there;
-// otherwise the VN pass reads the plan's own table in device memory.
+// per-edge tables in shared memory.  kCopyVn (K1): the prologue copies the
+// VN table into vn_copy (shared memory) and the VN pass reads it there;
+// otherwise (K1g) the VN pass reads the plan's own table in device memory.
+// kEvictLlr (K1g with R in the L2): the LLRs, read once, load evict-first
+// so that they do not push R out of the L2.
 template <class CN, class QP, class MP, bool kRescaled, int kMaxDeg,
-          bool kCopyVn>
+          bool kCopyVn, bool kEvictLlr = false>
 __device__ __forceinline__ void flood_decode(
     const float* __restrict__ llr, uint8_t* __restrict__ bits,
     uint8_t* __restrict__ ok_out, int32_t* __restrict__ iu_out,
@@ -310,7 +324,7 @@ __device__ __forceinline__ void flood_decode(
   const float* llr_b = llr + b * n;
 
   for (int v = threadIdx.x; v < n; v += blockDim.x) {
-    const float x = quant.quantize(llr_b[v]);
+    const float x = quant.quantize(kEvictLlr ? __ldcs(llr_b + v) : llr_b[v]);
     const int u = state_index(v, col_off, Z);
     L[u] = kRescaled ? x * inv_alpha : x;
     P[u] = x;
@@ -419,11 +433,14 @@ bp_flood_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
       quant, inv_alpha, early_stop, L, P, VN, rows, R);
 }
 
-// K1g: L, P and R of codeword b in device memory, at state + b * stride
-// (L and P n floats each, then R); the VN table read from the plan's;
-// bucket 0's two-pass rows, their per-edge tables in shared memory.
-template <class CN, class QP, class MP, bool kRescaled>
-__global__ void __launch_bounds__(kGenericThreads)
+// K1g: codeword b's R in device memory at state + b * stride.
+// kSharedLP: L and P (n floats each) in shared memory, then bucket 0's
+// per-edge tables; otherwise L and P at the head of the slice, R after
+// them, and the per-edge tables alone in shared memory.  The VN table
+// read from the plan's.
+template <class CN, class QP, class MP, bool kRescaled, bool kSharedLP>
+__global__ void __launch_bounds__(kSharedLP ? kSharedLPThreads
+                                            : kGenericThreads)
 bp_flood_gmem_kernel(const float* __restrict__ llr,
                      uint8_t* __restrict__ bits, uint8_t* __restrict__ ok_out,
                      int32_t* __restrict__ iu_out, Tables tab,
@@ -431,15 +448,25 @@ bp_flood_gmem_kernel(const float* __restrict__ llr,
                      int nb, int E, int iters, CN proto, QP quant,
                      float inv_alpha, int early_stop,
                      char* __restrict__ state, size_t stride) {
+  using Msg = typename MP::T;
   extern __shared__ float smem[];
   const int n = nb * Z;
-  float* L = reinterpret_cast<float*>(state + blockIdx.x * stride);
+  char* slice = state + blockIdx.x * stride;
+  float* L = kSharedLP ? smem : reinterpret_cast<float*>(slice);
   float* P = L + n;
-  flood_decode<CN, QP, MP, kRescaled, 0, false>(
+  int32_t* rows = reinterpret_cast<int32_t*>(kSharedLP ? P + n : smem);
+  Msg* R = reinterpret_cast<Msg*>(kSharedLP ? slice
+                                         : reinterpret_cast<char*>(P + n));
+  flood_decode<CN, QP, MP, kRescaled, 0, false, kSharedLP>(
       llr, bits, ok_out, iu_out, tab, col_off, Z, mb, nb, E, iters, proto,
-      quant, inv_alpha, early_stop, L, P, nullptr,
-      reinterpret_cast<int32_t*>(smem),
-      reinterpret_cast<typename MP::T*>(P + n));
+      quant, inv_alpha, early_stop, L, P, nullptr, rows, R);
+}
+
+// Bytes of dynamic shared memory one K1g block needs: bucket 0's per-edge
+// tables and, with shared_lp != 0, L and P (4 B a variable each).
+size_t gmem_smem_bytes(int Z, int mb, int nb, int E, int shared_lp) {
+  return (shared_lp ? 2 * (size_t)nb * Z * sizeof(float) : 0) +
+         (size_t)(mb + 1 + 3 * E) * sizeof(int32_t);
 }
 
 struct Args {
@@ -456,6 +483,7 @@ struct Args {
   cudaStream_t stream;
   char* state;   // K1g's scratch (null: K1), `stride` bytes a codeword
   size_t stride;
+  int shared_lp;  // K1g: L and P in shared memory
 };
 
 template <class CN, class QP, class MP, bool kRescaled, int kMaxDeg>
@@ -480,19 +508,24 @@ cudaError_t launch_bucket(const Args& a, const QP& quant) {
   return cudaGetLastError();
 }
 
-// K1g: kGenericThreads threads a codeword, bucket 0's per-edge tables in
-// shared memory (a.bucket and a.threads are K1's and do not apply).
-template <class CN, class QP, class MP, bool kRescaled>
+// K1g: a.threads threads a codeword (at most kSharedLPThreads with L and
+// P in shared memory, else kGenericThreads), bucket 0's per-edge tables in
+// shared memory (a.bucket is K1's and does not apply).
+template <class CN, class QP, class MP, bool kRescaled, bool kSharedLP>
 cudaError_t launch_gmem(const Args& a, const QP& quant) {
-  const size_t smem = (size_t)(a.mb + 1 + 3 * a.E) * sizeof(int32_t);
-  auto kernel = bp_flood_gmem_kernel<CN, QP, MP, kRescaled>;
+  if (a.threads <= 0 || a.threads % 32 ||
+      a.threads > (kSharedLP ? kSharedLPThreads : kGenericThreads)) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = gmem_smem_bytes(a.Z, a.mb, a.nb, a.E, kSharedLP);
+  auto kernel = bp_flood_gmem_kernel<CN, QP, MP, kRescaled, kSharedLP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   CN proto;
   proto.alpha = a.alpha;
   proto.beta = a.beta;
-  kernel<<<a.batch, kGenericThreads, smem, a.stream>>>(
+  kernel<<<a.batch, a.threads, smem, a.stream>>>(
       a.llr, a.bits, a.ok, a.iters_used, a.tab, a.col_off, a.Z, a.mb, a.nb,
       a.E, a.iters, proto, quant, a.inv_alpha, a.early_stop, a.state,
       a.stride);
@@ -502,7 +535,8 @@ cudaError_t launch_gmem(const Args& a, const QP& quant) {
 template <class CN, class MP, bool kRescaled = false, class QP = NoQuant>
 cudaError_t launch(const Args& a, QP quant = QP{}) {
   if (a.state != nullptr) {
-    return launch_gmem<CN, QP, MP, kRescaled>(a, quant);
+    return a.shared_lp ? launch_gmem<CN, QP, MP, kRescaled, true>(a, quant)
+                   : launch_gmem<CN, QP, MP, kRescaled, false>(a, quant);
   }
   switch (a.bucket) {
     case 8:
@@ -590,21 +624,32 @@ int ldpc_bp_flood(int algo, const float* llr, uint8_t* bits, uint8_t* ok,
                col_off, batch, Z, mb, nb, E, bucket, threads, iters, alpha,
                beta, inv_alpha, early_stop,
                ldpc_bp_flood_smem_bytes(Z, mb, nb, E, bucket, msg_bf16),
-               (cudaStream_t)stream, nullptr, 0};
+               (cudaStream_t)stream, nullptr, 0, 0};
   return (int)launch_mode(algo, a, msg_bf16, rescaled, quantized, step, kmax,
                           lim_msg, lim_post);
 }
 
+// Bytes of dynamic shared memory one K1g block needs (shared_lp != 0: L
+// and P there too); flood_plan.flood_gmem_smem_bytes computes the same.
+size_t ldpc_bp_flood_gmem_smem_bytes(int Z, int mb, int nb, int E,
+                                     int shared_lp) {
+  return gmem_smem_bytes(Z, mb, nb, E, shared_lp);
+}
+
 // K1g, the device-memory form of ldpc_bp_flood for a code whose state
 // exceeds one block's shared memory: the same arguments and policies
-// without bucket and threads (it runs bucket 0's two-pass rows on
-// kGenericThreads threads a codeword), and `state`, scratch of batch *
-// `stride` bytes in device memory that the kernel overwrites: codeword
-// b's L and P (n floats each), then its R (E * Z messages of float32, or
-// bf16 with msg_bf16), at state + b * stride.  The caller sizes and
-// allocates it (flood_plan.flood_gmem_state_bytes; nothing is allocated
-// here).  A null or misaligned scratch, or a stride below that state or
-// not a multiple of 16, is refused.  Returns as ldpc_bp_flood.
+// without bucket (it runs bucket 0's two-pass rows), and `shared_lp`,
+// `threads` and `state`.  shared_lp != 0 keeps L and P in shared memory
+// (ldpc_bp_flood_gmem_smem_bytes) on blocks of at most 1024 threads;
+// shared_lp == 0 puts them in the scratch, on blocks of at most 256.
+// `state` is scratch of batch * `stride` bytes in device memory that the
+// kernel overwrites: codeword b's R (E * Z messages of float32, or bf16
+// with msg_bf16) at state + b * stride, after its L and P (n floats each)
+// where shared_lp == 0.  The caller sizes and allocates it
+// (flood_plan.gmem_placement; nothing is allocated here).  A null or
+// misaligned scratch, a stride below that state or not a multiple of 16,
+// or a thread count that is not a positive multiple of 32 within the
+// bound, is refused.  Returns as ldpc_bp_flood.
 int ldpc_bp_flood_gmem(int algo, const float* llr, uint8_t* bits, uint8_t* ok,
                        int32_t* iters_used, const int32_t* vn_info,
                        const int32_t* cn_p, const int32_t* cn_r,
@@ -615,9 +660,10 @@ int ldpc_bp_flood_gmem(int algo, const float* llr, uint8_t* bits, uint8_t* ok,
                        float alpha, float beta, int early_stop, int msg_bf16,
                        int rescaled, float inv_alpha, int quantized,
                        float step, float kmax, float lim_msg, float lim_post,
-                       void* state, size_t stride, void* stream) {
+                       int shared_lp, int threads, void* state,
+                       size_t stride, void* stream) {
   const size_t need =
-      2 * (size_t)nb * Z * sizeof(float) +
+      (shared_lp ? 0 : 2 * (size_t)nb * Z * sizeof(float)) +
       (size_t)E * Z * (msg_bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
   if (state == nullptr || (uintptr_t)state % 16 || stride % 16 ||
       stride < need) {
@@ -625,9 +671,9 @@ int ldpc_bp_flood_gmem(int algo, const float* llr, uint8_t* bits, uint8_t* ok,
   }
   const Args a{llr, bits, ok, iters_used,
                Tables{vn_info, cn_p, cn_r, cn_deg, row_ptr, e_p, e_r, e_shift},
-               col_off, batch, Z, mb, nb, E, 0, kGenericThreads, iters, alpha,
+               col_off, batch, Z, mb, nb, E, 0, threads, iters, alpha,
                beta, inv_alpha, early_stop, 0, (cudaStream_t)stream,
-               (char*)state, stride};
+               (char*)state, stride, shared_lp != 0};
   return (int)launch_mode(algo, a, msg_bf16, rescaled, quantized, step, kmax,
                           lim_msg, lim_post);
 }

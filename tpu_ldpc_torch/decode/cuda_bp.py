@@ -15,15 +15,17 @@ interpret, dtype and the VMEM budget) have no counterpart.
 Flooding decoders take K1g (``bp_flood_gmem_kernel``) where the code's
 state exceeds one block's shared memory (``ldpc_bp_flood_smem_bytes``
 above ``flood_plan.SMEM_LIMIT_BYTES``, NR BG1 at Z = 384): every mode
-above, bit for bit with the shared-memory kernel, its state in a scratch
-buffer of ``flood_plan.flood_gmem_state_bytes`` a codeword that each call
+above, bit for bit with the shared-memory kernel, R (and L and P where
+``flood_plan.gmem_placement`` cannot keep them in shared memory) in a
+scratch buffer of ``GmemPlacement.stride`` bytes a codeword that each call
 allocates (``torch.empty``, inside the span ``ldpc.decode.gmem``).  The
 layered and compressed schedules raise there, naming the flooding one.
 
 Each launch adds one to ``LAUNCHES[fn.kernel]``, a launch in normalized
 coordinates also to ``LAUNCHES[fn.kernel + '_normalized']`` (shift
-normalization is a mode of the same kernel body), and a launch of K1g
-also to ``LAUNCHES[fn.kernel + '_gmem']``.  Kernel names:
+normalization is a mode of the same kernel body), a launch of K1g also to
+``LAUNCHES[fn.kernel + '_gmem']``, and one of K1g with L and P in shared
+memory also to ``LAUNCHES[fn.kernel + '_gmem_smem']``.  Kernel names:
 
 - ``minsum_flood`` / ``minsum_layered``: K1 / K2, min-sum;
 - ``sumproduct_flood`` / ``sumproduct_layered``: K3, exact sum-product;
@@ -43,7 +45,7 @@ import torch
 
 from tpu_ldpc_torch.codes.code import LdpcCode
 from tpu_ldpc_torch.decode.flood_plan import (
-    SMEM_LIMIT_BYTES, compressed_plan, flood_gmem_state_bytes, flood_plan)
+    SMEM_LIMIT_BYTES, compressed_plan, flood_plan, gmem_placement)
 from tpu_ldpc_torch.decode.layered_plan import layered_plan
 from tpu_ldpc_torch.decode.normalize import coordinates
 from tpu_ldpc_torch.decode.reference import (
@@ -79,7 +81,8 @@ def _all_names():
         names.append(kernel_name("minsum", sched, quantized=True))
     names.append(kernel_name("minsum", "flooding", rescaled=True))
     normalized = [f"{name}_normalized" for name in names]
-    gmem = [f"{name}_gmem" for name in names if "_flood" in name]
+    gmem = [f"{name}_gmem{smem}" for name in names if "_flood" in name
+            for smem in ("", "_smem")]
     return names + [kernel_name("minsum", "flooding", compressed=True)] \
         + normalized + gmem
 
@@ -164,6 +167,7 @@ def build_cuda_decoder(
         # above the limit a flooding decode keeps its state in device
         # memory (K1g); no other schedule has such a form
         gmem = smem > SMEM_LIMIT_BYTES
+        shared_lp = False
         if gmem and not flooding:
             raise ValueError(
                 f"{code.name}: {name} decoder state {smem} B exceeds the "
@@ -199,15 +203,18 @@ def build_cuda_decoder(
                     int(bool(early_stop)), stream)
             elif gmem:
                 with span("ldpc.decode.gmem"):
-                    stride = flood_gmem_state_bytes(code.Z, code.nb, E, bf16)
-                    state = torch.empty(batch * stride, dtype=torch.uint8,
-                                        device=llr.device)
+                    place = gmem_placement(code.Z, code.mb, code.nb, E,
+                                           bf16, SMEM_LIMIT_BYTES)
+                    shared_lp = place.shared_lp
+                    state = torch.empty(batch * place.stride,
+                                        dtype=torch.uint8, device=llr.device)
                     err = lib.ldpc_bp_flood_gmem(
                         _ALGO_IDS[algo], *outs, *tab_ptrs, coff_ptr,
                         batch, code.Z, code.mb, code.nb, E, int(iters),
                         float(alpha), float(beta), int(bool(early_stop)),
                         int(bf16), int(bool(rescaled)), inv_alpha, *qargs,
-                        state.data_ptr(), stride, stream)
+                        int(shared_lp), place.threads, state.data_ptr(),
+                        place.stride, stream)
             elif flooding:
                 err = lib.ldpc_bp_flood(
                     _ALGO_IDS[algo], *outs, *tab_ptrs, coff_ptr,
@@ -223,7 +230,9 @@ def build_cuda_decoder(
                     plan.r_stride, int(iters), float(alpha), float(beta),
                     int(bool(early_stop)), int(bf16), *qargs, stream)
         check(lib, err, f"{name} launch")
-        for counter in counters + ((f"{name}_gmem",) if gmem else ()):
+        gmem_counters = ((f"{name}_gmem",) if gmem else ()) + (
+            (f"{name}_gmem_smem",) if shared_lp else ())
+        for counter in counters + gmem_counters:
             LAUNCHES[counter] += 1
         return bits, ok, iu
 

@@ -34,10 +34,13 @@ which reads the per-edge tables ``row_ptr``, ``e_p`` (col*Z), ``e_r``
 
 A code whose block state (``flood_smem_bytes`` in its bucket) exceeds
 ``SMEM_LIMIT_BYTES`` runs the device-memory kernel (``bp_flood_gmem_kernel``)
-on the same plan: L, P and R of each codeword in a scratch buffer of
-``flood_gmem_state_bytes`` a codeword, the VN table read from ``vn_info``
-itself, and bucket 0's two-pass rows over ``row_ptr`` / ``e_*`` whatever
-the bucket.
+on the same plan: R of each codeword in a scratch buffer in device
+memory, the VN table read from ``vn_info`` itself, and bucket 0's two-pass
+rows over ``row_ptr`` / ``e_*`` whatever the bucket.  ``gmem_placement``
+puts L and P beside the row tables in shared memory where they fit
+(``flood_gmem_smem_bytes``), one block of ``GMEM_SHARED_LP_THREADS`` an SM,
+so that the resident codewords' R fits the L2; else in the scratch before
+R, on blocks of ``GENERIC_THREADS``.
 """
 
 from __future__ import annotations
@@ -58,6 +61,9 @@ PACK_LIMIT = 1 << 16   # buckets above 8: indices in 16 bits
 VN_BASE_BITS = 17      # vn_info = (col_deg << 17) | base, as uint32
 SMEM_LIMIT_BYTES = 232_448  # 227 KB: the most one Hopper block may use
 GMEM_STATE_ALIGN = 256      # the device-memory kernel: bytes a state rounds to
+# its block with L and P in shared memory, one an SM (512 threads ran
+# 1.59x slower on the H100: the L2's latency wants the warps)
+GMEM_SHARED_LP_THREADS = 1024
 
 
 def flood_smem_bytes(Z: int, mb: int, nb: int, E: int, bucket: int,
@@ -79,14 +85,46 @@ def code_flood_smem_bytes(code: LdpcCode) -> int:
                             choose_bucket(lay.max_row_deg, m, n, E * lay.Z))
 
 
-def flood_gmem_state_bytes(Z: int, nb: int, E: int,
-                           msg_bf16: bool = False) -> int:
+def flood_gmem_state_bytes(Z: int, nb: int, E: int, msg_bf16: bool = False,
+                           shared_lp: bool = False) -> int:
     """Device memory of one codeword's state in the device-memory kernel:
-    L and P (4 B a variable each) and R in float32 or bf16, rounded up to
-    GMEM_STATE_ALIGN.  The decoder allocates batch times this and passes
-    it to ldpc_bp_flood_gmem as the stride between codewords."""
-    nbytes = 2 * nb * Z * 4 + E * Z * (2 if msg_bf16 else 4)
+    R in float32 or bf16 and, unless `shared_lp`, L and P (4 B a variable
+    each), rounded up to GMEM_STATE_ALIGN.  The decoder allocates batch
+    times this and passes it to ldpc_bp_flood_gmem as the stride between
+    codewords."""
+    nbytes = (0 if shared_lp else 2 * nb * Z * 4) + E * Z * (
+        2 if msg_bf16 else 4)
     return -(-nbytes // GMEM_STATE_ALIGN) * GMEM_STATE_ALIGN
+
+
+def flood_gmem_smem_bytes(Z: int, mb: int, nb: int, E: int,
+                          shared_lp: bool) -> int:
+    """Shared memory of one device-memory kernel's block: bucket 0's
+    per-edge tables (row_ptr and three per edge) and, with `shared_lp`, L
+    and P (4 B a variable each).  The C entry point
+    ldpc_bp_flood_gmem_smem_bytes computes the same."""
+    return (2 * nb * Z * 4 if shared_lp else 0) + (mb + 1 + 3 * E) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class GmemPlacement:
+    """Where the device-memory kernel keeps a codeword's state."""
+
+    shared_lp: bool  # L and P in shared memory, R alone in the scratch
+    threads: int     # a block: GMEM_SHARED_LP_THREADS, else GENERIC_THREADS
+    stride: int      # scratch a codeword (flood_gmem_state_bytes)
+
+
+def gmem_placement(Z: int, mb: int, nb: int, E: int, msg_bf16: bool = False,
+                   limit: int = SMEM_LIMIT_BYTES) -> GmemPlacement:
+    """The device-memory kernel's placement: L and P in shared memory
+    where they and the row tables fit in `limit` bytes, else in the
+    scratch."""
+    shared_lp = flood_gmem_smem_bytes(Z, mb, nb, E, True) <= limit
+    return GmemPlacement(
+        shared_lp=shared_lp,
+        threads=GMEM_SHARED_LP_THREADS if shared_lp else GENERIC_THREADS,
+        stride=flood_gmem_state_bytes(Z, nb, E, msg_bf16, shared_lp))
 
 
 def choose_bucket(max_row_deg: int, m: int, n: int, r_slots: int) -> int:
