@@ -9,13 +9,12 @@ version on the card (min-sum, sumproduct-fast and fixed-point min-sum bit
 for bit, exact sum-product frame by frame), drives the port's main paths
 on the judged (1024, 512) code through the public entry points -- slice
 1: flooding min-sum decode(), run_ber and the sweep CLI; slice 2: layered
-min-sum, exact sum-product and two-phase decoding through decode(),
-run_ber and the CLI; slice 3: sumproduct-fast and fixed-point min-sum
-through decode(), two-phase, run_ber against the frozen quantized rows
-and the CLI's Eb/N0-at-FER search; slice 4: build_cuda_decoder's storage
-and arithmetic modes (compressed row state, bf16 messages, rescaled
-min-sum, shift normalization) against the float32 decoder, two-phase
-under bf16 and decode() in the code's own coordinates; slice 5: the
+min-sum and exact sum-product through decode() and run_ber; slice 3:
+sumproduct-fast and fixed-point min-sum through decode(), run_ber against
+the frozen quantized rows and the CLI's Eb/N0-at-FER search; slice 4:
+build_cuda_decoder's storage and arithmetic modes (compressed row state,
+bf16 messages, rescaled min-sum, shift normalization) against the
+float32 decoder and decode() in the code's own coordinates; slice 5: the
 redesigned flooding body on one code per row-degree bucket (and its
 two-pass form), with ptxas's registers and spills of every instantiation;
 slice 6: the redesigned layered body and compressed-state kernel (K6) on
@@ -36,13 +35,13 @@ replay of their streams, the ring and partitioned decoders against the
 plain decoder, build_decode_fn's routing, the torchrun launcher against
 the single-process CLI, --profile); slice 11: the throughput CLI
 (tpu_ldpc_torch.cli.bench.main in this process: the headline, layered,
-ET on, sumproduct-fast, two-phase and the headline under --profile, its
-time against phase 5's K1 time) and the registry validation capped at
-one chunk a cell; slice 12: the registry tools (the two-phase knob
-tuner's measurement of four cells, two-phase against single-pass ET on
-its probe, the judged ET-off times against phase 5's, measure_at over
-buffers rebuilt on the card against measure, the edge-rate audit over those rows, one IR-HARQ point with its
-stage times and delivered Gb/s); the MC batch kernels (mc_encode_llr,
+ET on, sumproduct-fast and the headline under --profile, its time
+against phase 5's K1 time) and the registry validation capped at one
+chunk a cell; slice 12: the registry tools (the registry timing script's
+measurement of four cells, the judged ET-off times against phase 5's,
+measure_at over buffers rebuilt on the card against measure, the
+edge-rate audit over those rows, one IR-HARQ point with its stage times
+and delivered Gb/s); the MC batch kernels (mc_encode_llr,
 mc_count) against BatchFn's torch ops bit for bit, at the cells' shapes
 too, the regroup identity and the world-1 sharded step; K1g, the flooding
 kernel's device-memory form, at the Z = 384 MC cell's shape through the
@@ -169,16 +168,14 @@ CODEGEN_ARGV = ["--family", "custom", "--mb", "4", "--nb", "8", "--z", "16",
 NEW_CELL = ("wimax", "3/4", 32)
 # slice 11: the throughput CLI (tpu_ldpc_torch.cli.bench.main, in this
 # process) on the judged code at b=BATCH: (label, flags, the kernels its
-# decodes launch); (f) is (a) under --profile.  (a)'s ms_per_batch must
+# decodes launch); (e) is (a) under --profile.  (a)'s ms_per_batch must
 # lie within BENCH_K1_BAND of phase 5's K1 time (CUDA events, same run)
 SLICE11_BENCH = (
     ("a", [], {"minsum_flood"}),
     ("b", ["--schedule", "layered", "--iters", "25"], {"minsum_layered"}),
     ("c", ["--early-stop"], {"minsum_flood"}),
     ("d", ["--algo", "sumproduct-fast"], {"spfast_flood"}),
-    ("e", ["--impl", "twophase", "--schedule", "layered"],
-     {"minsum_layered"}),
-    ("f", [], {"minsum_flood"}),
+    ("e", [], {"minsum_flood"}),
 )
 BENCH_KEYS = {"code", "n", "k", "ebn0_db", "algo", "iters", "schedule",
               "early_stop", "batch", "backend", "n_devices", "ms_per_batch",
@@ -1417,7 +1414,7 @@ def _strict_json(line):
 def _slice11_path(dev, smi):
     """The throughput CLI in this process: SLICE11_BENCH's records, each
     one JSON line equal to the record main returns, its info bits/s batch
-    * k over its time, its decodes on its own kernels alone; (f)'s trace
+    * k over its time, its decodes on its own kernels alone; (e)'s trace
     holds device events of bp_flood_kernel.  Then the registry validation
     (scripts/torch_registry_validation.py) capped at one chunk a cell:
     K1 bit for bit with the plain decoder on all 61 cells.  Returns the
@@ -1437,7 +1434,7 @@ def _slice11_path(dev, smi):
     print(f"[slice11] nvidia-smi: {smi}")
     for label, flags, own in SLICE11_BENCH:
         argv = ["--device", "cuda", "--batch", str(BATCH), *flags, "--json"]
-        if label == "f":
+        if label == "e":
             argv += ["--profile", trace_dir]
         before = dict(LAUNCHES)
         out = io.StringIO()
@@ -1465,9 +1462,9 @@ def _slice11_path(dev, smi):
     k1 = [e for e in events if e.get("cat") == "kernel"
           and "bp_flood_kernel" in e.get("name", "")]
     if not k1:
-        raise AssertionError("(f): no device event of bp_flood_kernel in "
+        raise AssertionError("(e): no device event of bp_flood_kernel in "
                              "the trace")
-    print(f"[slice11] (f) trace: {len(k1)} device events of "
+    print(f"[slice11] (e) trace: {len(k1)} device events of "
           f"bp_flood_kernel, mean {sum(e['dur'] for e in k1) / len(k1):.2f}"
           " us (profiler)")
 
@@ -1817,14 +1814,14 @@ def _gmem_path(dev, smi):
 
 
 def _slice12_path(dev, smi):
-    """The registry tools in this process: the tuner's measurement of
-    SLICE12_CELLS (tune_phase1_iters, two-phase and single-pass layered ET
-    on the same buffers, layered-25 and flooding-50 ET off; two-phase ==
-    single-pass ET on the seed-11 probe), measure_at against measure on
+    """The registry tools in this process: the timing script's
+    measurement of SLICE12_CELLS (single-pass layered ET, layered-25 and
+    flooding-50 ET off on the same buffers), measure_at against measure on
     the judged timer (its buffers first rebuilt on the card and held
-    equal to the timer's own bit for bit), the audit's fits over those rows, and one IR-HARQ
-    point of the HARQ twin (stage FERs equal a second run_irharq of the
-    same seed).  Returns the tuner's rows by cell and the timer check."""
+    equal to the timer's own bit for bit), the audit's fits over those
+    rows, and one IR-HARQ point of the HARQ twin (stage FERs equal a
+    second run_irharq of the same seed).  Returns the timing script's rows
+    by cell and the timer check."""
     import torch
 
     from tpu_ldpc_torch.benchcore import make_timer
@@ -1843,15 +1840,12 @@ def _slice12_path(dev, smi):
     for cname in SLICE12_CELLS:
         code, ebn0 = cells[cname]
         row = tune.measure_cell(code, ebn0, dev, BATCH, SLICE12_REPS)
-        if "skipped" in row or not row["probe_twophase_equals_single_et"]:
+        if "skipped" in row:
             raise AssertionError(f"[slice12] {cname}: {row}")
         rows[cname] = row
-        print(f"[slice12] {cname} {ebn0} dB b={BATCH} K={row['K']} budget="
-              f"{row['budget']} n_unconv(seed 11)={row['n_unconv_seed11']}: "
-              f"two-phase == single-pass ET (bits, ok, iters_used); ms a "
-              f"batch: two-phase {row['layered_twophase_ms']:.4f}, single "
-              f"ET {row['single_et_ms']:.4f} (ratio "
-              f"{row['twophase_over_single_et']:.4f}), layered 25 ET off "
+        print(f"[slice12] {cname} {ebn0} dB b={BATCH}: ms a batch: layered "
+              f"25 ET {row['single_et_ms']:.4f} (mean iters "
+              f"{row['single_et_mean_iters']:.3f}), layered 25 ET off "
               f"{row['layered_etoff_ms']:.4f}, flooding 50 ET off "
               f"{row['flood_etoff_ms']:.4f}; wall {row['wall_s']} s")
 
@@ -1892,10 +1886,9 @@ def _slice12_path(dev, smi):
 
     audit_rows, fits = audit.audit(rows)
     for r in audit_rows:
-        if r["fit"] != "twophase":
-            iters = 25 if r["fit"] == "layered_etoff" else 50
-            if r["edge_iters_per_frame"] != r["E_lifted"] * iters:
-                raise AssertionError(f"[slice12] audit row {r}")
+        iters = 25 if r["fit"] == "layered_etoff" else 50
+        if r["edge_iters_per_frame"] != r["E_lifted"] * iters:
+            raise AssertionError(f"[slice12] audit row {r}")
     for label, ((c1, c2, c3), ok) in fits.items():
         print(f"[slice12] audit {label}: ps/edge = {1e12 * c1:.3f} + "
               f"{1e12 * c2:.3f}*[Z%8!=0] + {1e12 * c3:.4f}*rowdeg over "
@@ -1951,10 +1944,8 @@ def main() -> int:
     from tpu_ldpc_torch.sim.harq import run_irharq
     from tpu_ldpc_torch.decode.flood_plan import compressed_plan, flood_plan
     from tpu_ldpc_torch.decode.layered_plan import layered_plan
-    from tpu_ldpc_torch.decode.knobs import resolve_twophase_knobs
     from tpu_ldpc_torch.decode.normalize import coordinates
     from tpu_ldpc_torch.decode.reference import build_decoder
-    from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
     from tpu_ldpc_torch.sim.mc import DecodeCfg, build_mc_step, run_ber
 
     rows = {row[0]: row for row in KERNELS}
@@ -2319,14 +2310,13 @@ def main() -> int:
             raise AssertionError(f"CLI CSV row {row}")
         print(f"[4 cli] wrote {csv}: frames={row[1]} FER={row[7]}")
 
-    twophase = {}
     slice10 = {}
     slice11 = {}
     slice12 = {}
 
     def slice2_path():
-        """Layered min-sum, exact sum-product and two-phase decoding:
-        decode(), run_ber and the CLI."""
+        """Layered min-sum and exact sum-product: decode() and
+        run_ber."""
         for kw in (dict(schedule="layered", iters=25),
                    dict(algo="sumproduct", schedule="layered", iters=25)):
             out = decode(judged, llr, **kw)
@@ -2354,42 +2344,16 @@ def main() -> int:
                   f"ok={float(out[1].float().mean()):.4f} "
                   f"mean_iters={float(out[2].double().mean()):.3f} "
                   f"card vs CPU (256 rows): agreement {share:.4f}")
-        single = decode(judged, llr, schedule="layered", iters=25)
-        fn = build_twophase_decoder(judged, 25, 9, 768, report_fallback=True,
-                                    schedule="layered")
-        *got, n_unconv = fn(llr)
-        err, _ = _diff(got, single)
-        if err:
-            raise AssertionError(f"two-phase != single-pass ET (max |diff| "
-                                 f"{err})")
-        out = decode(judged, llr, schedule="layered", iters=25,
-                     impl="twophase")  # knobs from the table: K=9, 768
-        if _diff(out, single)[0]:
-            raise AssertionError("decode(impl='twophase') != single-pass ET")
-        twophase["n_unconv"] = n_unconv
-        print(f"[4 twophase] judged layered 25 it K=9 budget=768 b={BATCH} "
-              f"2.0 dB: bit-identical to single-pass ET, n_unconv={n_unconv}")
         _run_ber_check(run_ber, judged, DecodeCfg(schedule="layered",
                                                   iters=25),
                        "minsum layered 25", 1)
         _run_ber_check(run_ber, judged, DecodeCfg(algo="sumproduct"),
                        "sumproduct flooding 50", 2)
-        csv = os.path.join(OUT_DIR, "judged_layered_twophase_2db.csv")
-        cli_sim.main(["--family", "judged", "--ebn0", "2.0", "--device",
-                      "cuda", "--schedule", "layered", "--iters", "25",
-                      "--impl", "twophase", "--batch", "4096",
-                      "--max-frames", "16384", "--csv", csv])
-        with open(csv) as f:
-            row = f.read().strip().splitlines()[-1].split(",")
-        if int(row[1]) < 16384:
-            raise AssertionError(f"CLI CSV row {row}")
-        print(f"[4 cli] layered twophase: wrote {csv}: frames={row[1]} "
-              f"FER={row[7]}")
 
     def slice3_path():
         """sumproduct-fast and fixed-point min-sum: decode() on both
-        schedules, two-phase, run_ber against the frozen quantized rows,
-        the CLI's Eb/N0-at-FER search."""
+        schedules, run_ber against the frozen quantized rows, the CLI's
+        Eb/N0-at-FER search."""
         for kw in (dict(algo="sumproduct-fast"),
                    dict(algo="sumproduct-fast", schedule="layered", iters=25),
                    dict(Q6),
@@ -2406,23 +2370,6 @@ def main() -> int:
                   f"ok={float(out[1].float().mean()):.4f} "
                   f"mean_iters={float(out[2].double().mean()):.3f}: "
                   "bit-exact with decode(device='cpu') on 256 rows")
-        single = decode(judged, llr, quant_bits=5)
-        out = decode(judged, llr, quant_bits=5, impl="twophase")
-        if _diff(out, single)[0]:
-            raise AssertionError("decode(impl='twophase', quant_bits=5) != "
-                                 "single-pass ET")
-        # the table's knobs, then a budget that holds every straggler
-        k, b, _ = resolve_twophase_knobs(judged, "flooding", None, None)
-        for budget in (b, 2 * b):
-            fn = build_twophase_decoder(judged, 50, k, budget,
-                                        report_fallback=True, quant_bits=5)
-            *got, n_unconv = fn(llr)
-            if _diff(got, single)[0]:
-                raise AssertionError("quantized two-phase != single-pass ET")
-            print(f"[4 twophase] judged flooding 50 it quant_bits=5 K={k} "
-                  f"budget={budget} b={BATCH} 2.0 dB: bit-identical to "
-                  f"single-pass ET, n_unconv={n_unconv} ("
-                  f"{'compacted' if n_unconv <= budget else 'full batch'})")
         for si, (label, (bits, step, errs, frames, run)) in enumerate(
                 QUANT_ROWS_2DB.items()):
             _run_ber_check(run_ber, judged,
@@ -2467,8 +2414,8 @@ def main() -> int:
         code at 2.0 dB, b=4096, ET on: compressed state equal to the
         float32 kernel, rescaled and bf16 min-sum within its >= 0.97 frame
         contract, every CN update and schedule under bf16, normalized
-        against plain coordinates, two-phase under bf16, decode() in the
-        code's own coordinates."""
+        against plain coordinates, decode() in the code's own
+        coordinates."""
         bf16 = torch.bfloat16
         ref = build_cuda_decoder(judged, "minsum", 50, normalize=False)(llr)
 
@@ -2509,24 +2456,14 @@ def main() -> int:
                       f"against {fer(f32):.4e}")
                 if min(share) < 0.97:
                     raise AssertionError(f"{algo} {sched} bf16: {share}")
-        for sched, iters, k in (("flooding", 50, 20), ("layered", 25, 9)):
+        for sched, iters in (("flooding", 50), ("layered", 25)):
             on = build_cuda_decoder(judged, "minsum", iters, schedule=sched)
             off = build_cuda_decoder(judged, "minsum", iters, schedule=sched,
                                      normalize=False)
             if _diff(on(llr), off(llr))[0]:
                 raise AssertionError(f"normalized {sched} != unnormalized")
-            single = build_cuda_decoder(judged, "minsum", iters,
-                                        schedule=sched, msg_dtype=bf16)(llr)
-            fn = build_twophase_decoder(judged, iters, k, 768,
-                                        report_fallback=True, schedule=sched,
-                                        msg_dtype=bf16)
-            *got, n_unconv = fn(llr)
-            if _diff(got, single)[0]:
-                raise AssertionError(f"bf16 two-phase {sched} != single-pass")
             print(f"[4 modes] judged min-sum {sched} {iters} it: normalized "
-                  f"== unnormalized; bf16 two-phase K={k} budget=768 "
-                  f"bit-identical to bf16 single-pass ET, n_unconv="
-                  f"{n_unconv}")
+                  f"== unnormalized")
         norm = build_cuda_decoder(judged, "minsum", 50)(llr)
         before = dict(LAUNCHES)
         out = decode(judged, llr)
@@ -2756,25 +2693,6 @@ def main() -> int:
               f"{np.median(ts[True]):.4f} ms median {ts[True]}, unnormalized "
               f"{np.median(ts[False]):.4f} ms median {ts[False]}; ratio "
               f"{np.median(ts[True]) / np.median(ts[False]):.4f}")
-
-    layered = build_cuda_decoder(judged, "minsum", 25, schedule="layered")
-    fn = build_twophase_decoder(judged, 25, 9, 768, schedule="layered")
-
-    def single_pass():
-        layered(llr)
-
-    def two_phase():
-        fn(llr)
-
-    for f in (single_pass, two_phase):
-        f()
-    torch.cuda.synchronize()
-    s1, t1 = _cuda_time_ms(single_pass, 20), _cuda_time_ms(two_phase, 20)
-    t2, s2 = _cuda_time_ms(two_phase, 20), _cuda_time_ms(single_pass, 20)
-    print(f"[5 time] judged layered 25 it 2.0 dB b={BATCH}: single-pass ET "
-          f"{(s1 + s2) / 2:.4f} ms ({s1:.4f}, {s2:.4f}); two-phase K=9 "
-          f"budget=768 {(t1 + t2) / 2:.4f} ms ({t1:.4f}, {t2:.4f}), "
-          f"n_unconv={twophase['n_unconv']}")
 
     step1 = build_mc_step(judged, DecodeCfg(), BATCH, 1, device="cuda")
     step1(0, 0, 2.0, 0)

@@ -11,17 +11,18 @@ each kernel form's rows:
     ps per edge-iteration  =  c1 + c2 * [Z % 8 != 0] + c3 * rowdeg
 
 E the lifted edges, K and B the two-phase knobs, least squares on the
-frame time.  The two-phase rows (``layered_twophase_gbps``) are fit as
-the TPU audit fits them.  An H100 artifact also holds layered-25 and
-flooding-50 rows with early termination off; their edge-iterations are
-exactly E * iters, and each form gets a fit of its own.  The ``bucket``
-column holds the kernel's form on the card for the row's schedule: the
-layered slot form of decode/layered_plan.py (two-phase and layered
-rows) or the flooding bucket of decode/flood_plan.py (0: the two-pass
-form), so the residuals can be read by form.  Each fit's rows are also
-fit to the slots the kernel walks per edge, ps/edge = a + b * bucket /
-rowdeg (a row of mean degree rowdeg padded to the bucket's slots; the
-two-pass rows, bucket 0, left out).
+frame time.  The two-phase rows (``layered_twophase_gbps``, the TPU
+artifact's and an older H100 artifact's) are fit as the TPU audit fits
+them.  An H100 artifact holds layered-25 and flooding-50 rows with early
+termination off; their edge-iterations are exactly E * iters, and each
+form gets a fit of its own.  The ``bucket`` column holds the kernel's
+form on the card for the row's schedule: the layered slot form of
+decode/layered_plan.py (two-phase and layered rows) or the flooding
+bucket of decode/flood_plan.py (0: the two-pass form), so the residuals
+can be read by form.  Each fit's rows are also fit to the slots the
+kernel walks per edge, ps/edge = a + b * bucket / rowdeg (a row of mean
+degree rowdeg padded to the bucket's slots; the two-pass rows, bucket 0,
+left out).
 
     python scripts/torch_roofline_audit.py
     python scripts/torch_roofline_audit.py \\
@@ -123,7 +124,7 @@ def audit(cells):
     rows, fits = [], {}
     for name in sorted(cells):
         rec = cells[name]
-        if "layered_twophase_gbps" not in rec:
+        if not any(key in rec for key, *_ in FITS.values()):
             rows.append({"cell": name, "fit": "twophase", "note": rec.get(
                 "skipped", rec.get("error", "no measured gbps"))})
             continue

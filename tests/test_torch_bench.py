@@ -4,9 +4,8 @@ the JAX package's on the CPU.
 The timed decoder is held bit for bit against the JAX package's jnp
 decoder (the path tpu_ldpc/cli/bench.py takes on the CPU) on the same
 NumPy-seeded LLRs; the record's static fields against
-tpu_ldpc.cli.bench.main's for the same flags, two-phase defaults from
-the knob table included.  Times are not compared: the CPU's numbers
-measure nothing of the card.
+tpu_ldpc.cli.bench.main's for the same flags.  Times are not compared:
+the CPU's numbers measure nothing of the card.
 """
 
 import json
@@ -98,16 +97,13 @@ def test_main_json_record(capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--batch", "64", "--iters", "4"],
-    ["--impl", "twophase"],
-    ["--impl", "twophase", "--schedule", "layered"],
-    ["--family", "wimax", "--rate", "5/6", "--z", "96", "--impl",
-     "twophase", "--schedule", "layered"],
     ["--algo", "sumproduct-fast", "--early-stop", "--ebn0", "1.5"],
-], ids=["default", "twophase", "twophase-layered", "twophase-wimax56",
-        "spfast-et"])
+], ids=["default", "spfast-et"])
 def test_static_fields_match_jax(flags, monkeypatch, capsys):
     """The same flags give the JAX record's static fields; the timed
-    call is stubbed in both packages (its arguments are compared)."""
+    call is stubbed in both packages (its arguments are compared: the
+    JAX package's two-phase knobs, which the port does not have, are
+    unset there)."""
     seen = {}
 
     def fake(pkg):
@@ -124,12 +120,26 @@ def test_static_fields_match_jax(flags, monkeypatch, capsys):
     assert one_json_line(capsys) == got
     assert {k: got[k] for k in STATIC} == {k: want[k] for k in STATIC}
     assert set(got) == set(want) | {"device_kind"}
-    port_kw = dict(seen["port"])
+    port_kw, jax_kw = dict(seen["port"]), dict(seen["jax"])
     assert port_kw.pop("device") == torch.device("cpu")
     assert port_kw.pop("profile") is None
-    assert port_kw == seen["jax"]
-    if "wimax" in flags:
-        assert got["ebn0_db"] == 3.6  # the knob table's point
+    assert jax_kw.pop("phase1_iters") is None
+    assert jax_kw.pop("compact_budget") is None
+    assert port_kw == jax_kw
+
+
+@pytest.mark.parametrize("flags,words", [
+    (["--impl", "twophase"], "invalid choice: 'twophase'"),
+    (["--compact-budget", "768"], "unrecognized arguments: --compact-budget"),
+], ids=["impl-twophase", "compact-budget"])
+def test_main_refuses_twophase(flags, words, capsys):
+    """Two-phase decoding is not in the port: its impl and its knobs
+    are refused by the parser, before anything is built or timed."""
+    with pytest.raises(SystemExit) as e:
+        main(flags + ["--device", "cpu", "--json"])
+    assert e.value.code == 2
+    captured = capsys.readouterr()
+    assert words in captured.err and captured.out == ""
 
 
 def test_loop_timer_measures_real_work():

@@ -2,9 +2,8 @@
 and the golden model: K1 (flooding min-sum), K2 (layered min-sum), K4
 (sumproduct-fast), K5 (fixed-point min-sum), K6 (compressed row state),
 K8 (rescaled min-sum) and K9 (shift normalization), bit-exact with golden
-float32, K3 (exact sum-product, both schedules) frame by frame, K7 (bf16
-messages) against its plain version, and two-phase decoding
-bit-identical to single-pass ET.
+float32, K3 (exact sum-product, both schedules) frame by frame and K7
+(bf16 messages) against its plain version.
 
 Marked `cuda`; each test skips without a CUDA device.  The file imports
 no JAX (only the JAX package's NumPy golden model and code registry), so
@@ -31,7 +30,6 @@ from tpu_ldpc_torch.decode.flood_plan import compressed_plan, flood_plan
 from tpu_ldpc_torch.decode.layered_plan import layered_plan
 from tpu_ldpc_torch.decode.normalize import coordinates
 from tpu_ldpc_torch.decode.reference import build_decoder
-from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
 
 pytestmark = pytest.mark.cuda
 # (algo, schedule, quantized) of the K1-K5 kernels
@@ -330,35 +328,6 @@ def test_sumproduct_kernels_on_extreme_llrs(cuda, schedule):
         assert_same(got, want)
 
 
-@pytest.mark.parametrize("schedule", ["flooding", "layered"])
-def test_quant_and_spfast_twophase_on_card(cuda, schedule):
-    """Two-phase with quantization and with sumproduct-fast on the card:
-    bit-identical to single-pass ET."""
-    _, code = codes("judged", "1/2", 64)
-    llr = torch.from_numpy(noisy_llrs(code, 1024, 2.0, seed=24)).to(cuda)
-    iters, k = (50, 20) if schedule == "flooding" else (25, 9)
-    for kw in (dict(quant_bits=5), dict(algo="sumproduct-fast")):
-        single = decode(code, llr, schedule=schedule, iters=iters, **kw)
-        got = decode(code, llr, schedule=schedule, iters=iters,
-                     impl="twophase", phase1_iters=k, compact_budget=512,
-                     **kw)
-        assert_same(got, single)
-
-
-@pytest.mark.parametrize("schedule", ["flooding", "layered"])
-def test_twophase_on_card_bit_identical(cuda, schedule):
-    _, code = codes("judged", "1/2", 64)
-    llr = torch.from_numpy(noisy_llrs(code, 1024, 2.0, seed=23)).to(cuda)
-    iters, k = (50, 20) if schedule == "flooding" else (25, 9)
-    single = decode(code, llr, schedule=schedule, iters=iters)
-    for budget in (512, 1):  # compacted, and the full-batch fallback
-        fn = build_twophase_decoder(code, iters, k, budget,
-                                    report_fallback=True, schedule=schedule)
-        *got, n_unconv = fn(llr)
-        assert (n_unconv > budget) == (budget == 1)
-        assert_same(got, single)
-
-
 def test_decode_api_launches_the_kernel_and_checks_inputs(cuda):
     _, code = codes("judged", "1/2", 64)
     llr = torch.from_numpy(noisy_llrs(code, 64, 2.0, seed=3)).to(cuda)
@@ -471,23 +440,6 @@ def test_normalized_kernels_vs_golden(cuda, family, rate, Z, ebn0):
                 ref.H, llr_np[:GOLDEN_ROWS], algo=algo, iters=iters,
                 alpha=0.75, schedule=schedule, dtype=np.float32,
                 early_stop=early_stop, **q))
-
-
-def test_slice4_twophase_on_card(cuda):
-    """Two-phase with bf16 messages, rescaled and compressed state:
-    bit-identical to single-pass ET under the same mode."""
-    _, code = codes("judged", "1/2", 64)
-    llr = torch.from_numpy(noisy_llrs(code, 1024, 2.0, seed=25)).to(cuda)
-    for kw in (dict(msg_dtype=torch.bfloat16),
-               dict(msg_dtype=torch.bfloat16, schedule="layered"),
-               dict(rescaled=True), dict(compressed=True)):
-        iters, k = (25, 9) if kw.get("schedule") == "layered" else (50, 20)
-        single = build_cuda_decoder(code, iters=iters, **kw)(llr)
-        fn = build_twophase_decoder(code, iters, k, 512,
-                                    report_fallback=True, **kw)
-        *got, n_unconv = fn(llr)
-        assert 0 < n_unconv <= 512
-        assert_same(got, single)
 
 
 # ---- slice 5: the flooding body by row-degree bucket ----

@@ -176,18 +176,17 @@ def test_decode_api_dispatches_by_device():
 
 
 @pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(schedule="windowed"), "Queue 1 item 7",
-                 id="kw0-Queue 1 item 7"),
-    pytest.param(dict(algo="bitflip"), "Queue 1 item 7",
-                 id="kw1-Queue 1 item 7"),
-    pytest.param(dict(impl="pallas"), "Queue 2", id="kw4-Queue 2"),
-    pytest.param(dict(impl="jnp"), "Queue 1 item 1",
-                 id="kw5-Queue 1 item 1"),
-    pytest.param(dict(algo="wbf"), "Queue 1 item 7",
-                 id="kw6-Queue 1 item 7"),
+    pytest.param(dict(schedule="windowed"), "ported", id="windowed-ported"),
+    pytest.param(dict(algo="bitflip"), "ported", id="bitflip-ported"),
+    pytest.param(dict(impl="pallas"), "impl='cuda'", id="pallas"),
+    pytest.param(dict(impl="jnp"), "impl='torch'", id="jnp"),
+    pytest.param(dict(algo="wbf"), "ported", id="wbf-ported"),
+    pytest.param(dict(impl="twophase"), "impl='auto', gives the same bits",
+                 id="twophase"),
 ])
 def test_unported_decoder_modes_raise(kw, item):
-    if item == "Queue 1 item 7":
+    """An impl the port does not have raises, naming its counterpart."""
+    if item == "ported":
         # ported since (they raised before the hard-decision and windowed
         # decoders existed in the port): decode() runs them
         if "algo" in kw:  # bitflip / wbf, against golden
@@ -214,10 +213,9 @@ def test_unported_decoder_modes_raise(kw, item):
 @pytest.mark.parametrize("kw", [
     dict(schedule="layered"),
     dict(algo="sumproduct"),
-    dict(impl="twophase", phase1_iters=4, compact_budget=16),
     dict(algo="sumproduct-fast"),
     dict(quant_bits=6),
-], ids=["layered", "sumproduct", "twophase", "sumproduct-fast", "quant"])
+], ids=["layered", "sumproduct", "sumproduct-fast", "quant"])
 def test_ported_decoder_modes_run(kw):
     """The modes slices 2 and 3 ported (they raised before) decode NumPy
     input on the CPU like the JAX package's decode(); min-sum (float or
@@ -238,4 +236,12 @@ def test_ported_decoder_modes_run(kw):
     else:
         assert (got[0] == want[0]).all(axis=1).mean() >= 0.97
     assert 0 < got[1].mean()
+
+
+def test_decode_refuses_twophase_keywords():
+    """decode() has no two-phase knobs: early termination is single-pass."""
+    code = toy_code()
+    with pytest.raises(TypeError, match="phase1_iters"):
+        decode(code, np.zeros((2, code.n), np.float32), phase1_iters=9,
+               device="cpu")
 

@@ -17,9 +17,8 @@ PORT_MODULES = (
     "tpu_ldpc_torch", "tpu_ldpc_torch.codes", "tpu_ldpc_torch.codes.alist",
     "tpu_ldpc_torch.codes.gf2", "tpu_ldpc_torch.codes_device",
     "tpu_ldpc_torch.report.waterfall", "tpu_ldpc_torch.decode",
-    "tpu_ldpc_torch.decode.cuda_bp", "tpu_ldpc_torch.decode.twophase",
-    "tpu_ldpc_torch.decode.normalize",
-    "tpu_ldpc_torch.decode.knobs", "tpu_ldpc_torch.decode.hard",
+    "tpu_ldpc_torch.decode.cuda_bp", "tpu_ldpc_torch.decode.normalize",
+    "tpu_ldpc_torch.decode.hard",
     "tpu_ldpc_torch.decode.windowed", "tpu_ldpc_torch.encode",
     "tpu_ldpc_torch.channel", "tpu_ldpc_torch.channel.adapt",
     "tpu_ldpc_torch.channel.bsc", "tpu_ldpc_torch.codes.crc",

@@ -253,7 +253,8 @@ def test_cuda_request_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("what", [
-    "wbf", "bitflip", "windowed", "jnp", "nr", "mesh", "profile"])
+    "wbf", "bitflip", "windowed", "jnp", "nr", "mesh", "profile",
+    "twophase"])
 def test_unsupported_modes_raise(what, tmp_path, monkeypatch):
     from tpu_ldpc_torch.cli.sim import main
 
@@ -308,8 +309,11 @@ def test_unsupported_modes_raise(what, tmp_path, monkeypatch):
         if what == "profile":
             assert (trace / "trace_rank0.json").stat().st_size > 1000
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_ber(toy_code(), [2.0], DecodeCfg(impl="jnp"), batch=8,
+    # an impl the port does not have: run_ber refuses it, naming the
+    # counterpart
+    counterpart = {"jnp": "impl='torch'", "twophase": "impl='auto'"}[what]
+    with pytest.raises(NotImplementedError, match=counterpart):
+        run_ber(toy_code(), [2.0], DecodeCfg(impl=what), batch=8,
                 max_frames=8, device="cpu")
 
 
@@ -345,14 +349,11 @@ def test_sim_cli_end_to_end(tmp_path, capsys):
 @pytest.mark.parametrize("flags", [
     ["--schedule", "layered"],
     ["--algo", "sumproduct"],
-    ["--schedule", "layered", "--impl", "twophase", "--phase1-iters", "4",
-     "--compact-budget", "16"],
     ["--algo", "sumproduct-fast"],
     ["--quant-bits", "5", "--quant-step", "0.5"],
     ["--algo", "sumproduct-fast", "--find-fer", "0.5", "--ebn0", "0.0",
      "3.0"],
-], ids=["layered", "sumproduct", "twophase", "sumproduct-fast", "quant",
-        "find_fer"])
+], ids=["layered", "sumproduct", "sumproduct-fast", "quant", "find_fer"])
 def test_sim_cli_decoder_modes(tmp_path, capsys, flags):
     """The modes slices 2 and 3 ported (they raised before) run end to
     end through the CLI and land in the config hash; --find-fer bisects
@@ -381,9 +382,8 @@ def test_sim_cli_decoder_modes(tmp_path, capsys, flags):
                      open(csv).read().strip().splitlines()[1:3])))
     assert int(row["frames"]) == results[0].frames
     cfg = SimConfig.from_sources(None, [f"decode.{k}" for k in (
-        "schedule=layered", "impl=twophase", "phase1_iters=4",
-        "compact_budget=16")])
-    assert cfg.decode.phase1_iters == 4 and cfg.decode.compact_budget == 16
+        "schedule=layered", "impl=torch")])
+    assert cfg.decode.impl == "torch"
     assert cfg.config_hash() != SimConfig.from_sources(
         None, ["decode.schedule=layered"]).config_hash()
     quant = SimConfig.from_sources(None, ["decode.quant_bits=5",
@@ -393,19 +393,35 @@ def test_sim_cli_decoder_modes(tmp_path, capsys, flags):
         None, ["decode.quant_bits=5"]).config_hash()
 
 
-def test_twophase_run_ber_equals_single_pass():
-    """run_ber with impl='twophase' counts exactly what single-pass ET
-    counts (bit-identical decodes, same draws)."""
-    code = toy_code()
-    kw = dict(batch=64, target_frame_errors=10**9, max_frames=256, seed=3,
-              device="cpu")
-    one = run_ber(code, [2.0], DecodeCfg(iters=15, schedule="layered"), **kw)[0]
-    two = run_ber(code, [2.0], DecodeCfg(iters=15, schedule="layered",
-                                         impl="twophase", phase1_iters=3,
-                                         compact_budget=32), **kw)[0]
-    for name in COUNTER_FIELDS:
-        assert getattr(one, name) == getattr(two, name), name
-    assert one.frame_errors > 0
+@pytest.mark.parametrize("flags,words", [
+    (["--impl", "twophase"], "invalid choice: 'twophase'"),
+    (["--phase1-iters", "9"], "unrecognized arguments: --phase1-iters"),
+], ids=["impl-twophase", "phase1-iters"])
+def test_sim_cli_refuses_twophase(flags, words, capsys):
+    """Two-phase decoding is not in the port: the parser refuses its impl
+    and its knobs before anything runs."""
+    from tpu_ldpc_torch.cli.sim import main
+
+    with pytest.raises(SystemExit) as e:
+        main(["--family", "judged", "--ebn0", "2.0", "--device", "cpu",
+              *flags])
+    assert e.value.code == 2
+    captured = capsys.readouterr()
+    assert words in captured.err and captured.out == ""
+
+
+def test_config_file_refuses_twophase_knobs(tmp_path):
+    """A config file that sets a two-phase knob is refused as any unknown
+    key is, through the CLI's --config."""
+    from tpu_ldpc_torch.cli.sim import main
+
+    path = tmp_path / "sweep.json"
+    path.write_text(json.dumps({"decode": {"schedule": "layered",
+                                           "phase1_iters": 9}}))
+    with pytest.raises(ValueError,
+                       match="unknown config key 'phase1_iters'"):
+        main(["--config", str(path), "--family", "judged", "--ebn0", "2.0",
+              "--device", "cpu", "--max-frames", "8"])
 
 
 def test_config_hash_and_overrides():

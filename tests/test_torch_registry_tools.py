@@ -101,9 +101,12 @@ def test_tuner_settings_equal_the_jax_script(tuner):
     jax_const = constants("tune_registry_knobs")
     assert (tuner.BATCH, tuner.ITERS) == (jax_const["BATCH"],
                                           jax_const["ITERS"])
-    assert (tuner.ALPHA, tuner.TUNE_SEED, tuner.PROBE_SEED) == (0.75, 3, 11)
+    assert (tuner.ALPHA, tuner.FLOOD_ITERS) == (0.75, 50)
     assert tuner.OUT.endswith(os.path.join("artifacts",
                                            "h100_registry_knobs.json"))
+    # the single-pass decoders alone: nothing is tuned or probed
+    assert not hasattr(tuner, "TUNE_SEED") and not hasattr(tuner,
+                                                           "PROBE_SEED")
 
 
 def toy_tuner(tuner, monkeypatch, batch=16):
@@ -124,14 +127,23 @@ def test_tuner_runs_on_the_cpu_and_resumes(tuner, tmp_path, capsys,
     with open(out) as f:
         art = json.load(f)
     row = art["cells"]["wimax_r56_z24"]
-    assert art["device"] == "cpu" and art["settings"]["batch"] == 16
-    assert row["probe_twophase_equals_single_et"] is True
-    assert 1 <= row["K"] <= tuner.ITERS and row["budget"] == 16
-    for label in ("layered_twophase", "single_et", "layered_etoff",
-                  "flood_etoff"):
+    assert art["device"] == "cpu" and art["settings"] == {
+        "batch": 16, "iters": 25, "flood_iters": 50, "alpha": 0.75,
+        "reps": 1, "coordinates": "plain", "device": "cpu"}
+    assert 1 <= row["single_et_mean_iters"] <= tuner.ITERS
+    assert set(row) == {"n", "k", "Z", "E", "ebn0_db", "single_et_mean_iters",
+                        "wall_s"} | {
+        f"{label}_{what}" for label in ("single_et", "layered_etoff",
+                                        "flood_etoff")
+        for what in ("ms", "dec_ms", "gbps")}
+    for label in ("single_et", "layered_etoff", "flood_etoff"):
         assert row[f"{label}_ms"] > 0 and len(row[f"{label}_dec_ms"]) == 5
         assert row[f"{label}_gbps"] == pytest.approx(
             16 * row["k"] / row[f"{label}_ms"] / 1e6)
+    # the audit fits the row's ET-off forms
+    rows, fits = load_script("torch_roofline_audit").audit(art["cells"])
+    assert set(fits) == {"layered_etoff", "flood_etoff"}
+    assert [r["fit"] for r in rows] == ["layered_etoff", "flood_etoff"]
     # a rerun resumes: the cell is kept, not measured again
     capsys.readouterr()
     assert tuner.main(argv) == 0

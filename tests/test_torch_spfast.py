@@ -26,7 +26,6 @@ from tpu_ldpc_torch import LdpcCode
 from tpu_ldpc_torch.decode import decode
 from tpu_ldpc_torch.decode.cuda_bp import LAUNCHES, build_cuda_decoder
 from tpu_ldpc_torch.decode.reference import _ctilde, _fpair, build_decoder
-from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
 
 torch.set_num_threads(1)
 
@@ -191,6 +190,3 @@ def test_decode_dispatch_and_quant_rejected():
     with pytest.raises(ValueError, match="minsum"):
         decode(code, llr, algo="sumproduct-fast", quant_bits=6,
                device="cpu")
-    with pytest.raises(ValueError, match="minsum"):
-        build_twophase_decoder(code, 20, algo="sumproduct-fast",
-                               quant_bits=6)

@@ -3,8 +3,6 @@ plain decoders, held against the JAX package on inputs made from a seed:
 
 - benchcore.make_timer's operating point (scale, sigma, the erased
   positions of a punctured code) and LoopTimer.measure_at;
-- tune_phase1_iters with the decoder's mode keywords (fixed-point,
-  bf16 messages) against the JAX decoders of the same keywords;
 - reference.decode and the plain decoders' arithmetic type (dtype):
   bf16 against the JAX reference's bf16, float32 bit for bit.
 """
@@ -18,7 +16,6 @@ from tpu_ldpc.benchcore import make_timer as jax_make_timer
 from tpu_ldpc.codes import LdpcCode as JaxLdpcCode
 from tpu_ldpc.codes import make_base_graph
 from tpu_ldpc.codes.base_graphs import make_sc_base_graph as jax_sc_graph
-from tpu_ldpc.decode.pallas_bp import build_pallas_decoder
 from tpu_ldpc.decode.reference import build_decoder as jax_build_decoder
 from tpu_ldpc.decode.windowed import (
     build_windowed_decoder as jax_build_windowed_decoder)
@@ -27,7 +24,6 @@ from tpu_ldpc_torch import benchcore
 from tpu_ldpc_torch.benchcore import make_timer
 from tpu_ldpc_torch.decode import reference
 from tpu_ldpc_torch.decode.reference import build_decoder
-from tpu_ldpc_torch.decode.twophase import tune_phase1_iters
 from tpu_ldpc_torch.decode.windowed import build_windowed_decoder
 
 torch.set_num_threads(1)
@@ -146,69 +142,6 @@ def test_measure_at_rebuilds_the_buffers():
         assert llr is not own
     assert [id(t) for t in timer.buffers_at(timer.scale, timer.sig)] == [
         id(t) for t in first_run]
-
-
-# ---- tune_phase1_iters(**decoder_kw) ------------------------------------
-
-def tune_from(ok, iu, batch, iters, margin=2.0):
-    """The JAX tuner's choice (tpu_ldpc/decode/twophase.py) from an
-    ET decoder's (ok, iters_used)."""
-    iu_eff = np.where(ok, iu, iters)
-    survivors = batch - np.cumsum(np.bincount(iu_eff, minlength=iters + 1))
-
-    def budget_at(K):
-        return min(batch, max(128, int(np.ceil(
-            margin * max(1, survivors[K]) / 128)) * 128))
-
-    costs = {K: K * batch + iters * budget_at(K)
-             for K in range(1, iters + 1)}
-    K = min(costs, key=costs.get)
-    stats = {"mean_iters": float(iu_eff.mean()),
-             "frac_unconverged": float((~ok).mean()),
-             "K": int(K), "n_stragglers": int(survivors[K]),
-             "budget": int(budget_at(K))}
-    return int(K), int(budget_at(K)), stats
-
-
-@pytest.mark.parametrize("mode", ["quant6", "bf16"])
-@pytest.mark.parametrize("schedule", ["flooding", "layered"])
-def test_tune_forwards_decoder_kw_as_jax(mode, schedule):
-    ref, code = toy_codes()
-    batch, iters, ebn0, seed = 512, 20, 2.0, 3
-    if mode == "quant6":
-        port_kw = {"quant_bits": 6, "quant_step": 0.5}
-        jax_dec = jax_build_decoder(ref, "minsum", iters, 0.75, 0.0,
-                                    schedule, True, quant_bits=6,
-                                    quant_step=0.5)
-    else:
-        port_kw = {"msg_dtype": torch.bfloat16}
-        jax_dec = build_pallas_decoder(ref, "minsum", iters, 0.75, 0.0,
-                                       schedule, True, normalize=False,
-                                       msg_dtype=jnp.bfloat16,
-                                       interpret=True)
-    got = tune_phase1_iters(code, ebn0, batch=batch, iters=iters, seed=seed,
-                            device="cpu", schedule=schedule, **port_kw)
-    llr = make_timer(code, batch, ebn0, device="cpu", n_buffers=1,
-                     seed=seed).llrs[0].numpy()
-    _, ok, iu = (np.asarray(x) for x in jax_dec(llr))
-    assert got == tune_from(ok, iu, batch, iters)
-    # the mode reached the decoder: float32's iterations differ here
-    f32 = jax_build_decoder(ref, "minsum", iters, 0.75, 0.0, schedule,
-                            True)(llr)
-    assert not np.array_equal(np.asarray(f32[2]), iu)
-    assert got != tune_phase1_iters(code, ebn0, batch=batch, iters=iters,
-                                    seed=seed, device="cpu",
-                                    schedule=schedule)
-
-
-def test_tune_keeps_its_positional_keywords():
-    _, code = toy_codes()
-    a = tune_phase1_iters(code, 2.0, 256, 20, 3, device="cpu",
-                          algo="minsum", alpha=0.75, beta=0.0,
-                          schedule="layered")
-    b = tune_phase1_iters(code, 2.0, batch=256, iters=20, seed=3,
-                          device="cpu", schedule="layered")
-    assert a == b
 
 
 # ---- reference.decode and dtype -----------------------------------------

@@ -9,20 +9,19 @@ Slices 1-3 cover BPSK over AWGN on the judged (1024, 512) code, the
 registry's wifi / wimax families, alist and SC codes, decoded with
 normalized / offset min-sum, exact sum-product, sumproduct-fast or
 fixed-point min-sum, on the flooding or the layered schedule, early
-termination on or off, in one pass or in two phases with straggler
-compaction, and the search for the Eb/N0 at a target FER.  Slice 4 adds
-the JAX Pallas builder's modes: shift normalization, rescaled min-sum,
-bf16 message storage and the compressed row state.  Slices 5-6
-redesigned the flooding and layered kernel bodies for the H100.  Slice 7
-adds the rate-compatible transmission path: the dual-diagonal encoder,
-the NR-like BG1/BG2 families, puncturing and shortening, the BSC, an
-outer CRC that gates the counters, and IR-HARQ.  Slice 8 adds the
-hard-decision and windowed decoders; slice 9 code construction and
-analysis (annealing, PEG, PEXIT, d_min bounds, the trapping-set census,
-the construction CLI); slice 10 distribution over ranks (the sharded MC
-step, the grid-sharded sweep, the partitioned and ring decoders, the
-torchrun launcher); slice 11 the throughput benchmark CLI and its timer,
-the MC step's fault-injection hook and ``encode()``:
+termination on or off, and the search for the Eb/N0 at a target FER.
+Slice 4 adds the JAX Pallas builder's modes: shift normalization,
+rescaled min-sum, bf16 message storage and the compressed row state.
+Slices 5-6 redesigned the flooding and layered kernel bodies for the
+H100.  Slice 7 adds the rate-compatible transmission path: the
+dual-diagonal encoder, the NR-like BG1/BG2 families, puncturing and
+shortening, the BSC, an outer CRC that gates the counters, and IR-HARQ.
+Slice 8 adds the hard-decision and windowed decoders; slice 9 code
+construction and analysis (annealing, PEG, PEXIT, d_min bounds, the
+trapping-set census, the construction CLI); slice 10 distribution over
+ranks (the sharded MC step, the grid-sharded sweep, the partitioned and
+ring decoders, the torchrun launcher); slice 11 the throughput benchmark
+CLI and its timer, the MC step's fault-injection hook and ``encode()``:
 
 - ``codes``: LdpcCode, the registry, the Tanner layout, GF(2) algebra,
   construction and analysis (host NumPy);
@@ -36,7 +35,6 @@ the MC step's fault-injection hook and ``encode()``:
 - ``decode.cuda_bp`` (``build_cuda_decoder``) + ``csrc/bp_flood.cu``,
   ``csrc/bp_layered.cu``, ``csrc/bp_compressed.cu``: the hand-written
   CUDA decode kernels for sm_90a;
-- ``decode.twophase``, ``decode.knobs``: two-phase decoding;
 - ``decode.api``, ``sim`` (``run_ber``, ``find_ebn0_at_fer``,
   ``harq.run_irharq``), ``cli`` (``cli.bench``: throughput), ``report``:
   the public entry points;

@@ -3,7 +3,6 @@
 
     python -m tpu_ldpc_torch.cli.bench --json
     python -m tpu_ldpc_torch.cli.bench --schedule layered --iters 25 --json
-    python -m tpu_ldpc_torch.cli.bench --impl twophase --schedule layered
     python -m tpu_ldpc_torch.cli.bench --device cpu --batch 128 --iters 8
 
 Times the decoder of ``build_bench_decoder`` (``decode/api.py``'s
@@ -12,11 +11,7 @@ the port's timer (``benchcore.py``: CUDA events around back-to-back
 decodes of LLR buffers that together exceed the card's L2) and reports
 ms per batch and decoded info bits/s.  The defaults are the judged
 (1024, 512) code, flooding min-sum alpha 0.75, 50 iterations, early
-termination off, 4096 codewords at 2.0 dB.  With ``--impl twophase`` a
-missing ``--ebn0`` / ``--iters`` comes from the cell's knob-table entry
-(``decode/knobs.py``) and missing knobs resolve there; two-phase reads
-its count of unconverged codewords on the host once a decode, and the
-time includes that synchronization.
+termination off, 4096 codewords at 2.0 dB.
 
 ``--device`` defaults to cuda and raises without a card; ``--device
 cpu`` runs the plain PyTorch decoder (host clock).  ``--json`` prints
@@ -36,18 +31,15 @@ import sys
 def build_bench_decoder(code, *, iters: int = 50, algo: str = "minsum",
                         alpha: float = 0.75, schedule: str = "flooding",
                         early_stop: bool = False, impl: str = "auto",
-                        phase1_iters: int | None = None,
-                        compact_budget: int | None = None, device):
+                        device):
     """The timed decoder: llr (batch, n) -> (bits, ok, iters_used).
-    impl 'twophase' terminates early by construction (early_stop is
-    ignored, as in the JAX package); 'jnp' and 'pallas' raise with a
-    pointer to their counterparts."""
+    An impl the port does not have raises with a pointer to its
+    counterpart (decode/api.py)."""
     from tpu_ldpc_torch.decode.api import build_decode_fn
     from tpu_ldpc_torch.sim.mc import DecodeCfg
 
     cfg = DecodeCfg(algo=algo, iters=iters, alpha=alpha, schedule=schedule,
-                    impl=impl, phase1_iters=phase1_iters,
-                    compact_budget=compact_budget)
+                    impl=impl)
     return build_decode_fn(code, cfg, device, early_stop=early_stop)
 
 
@@ -62,8 +54,6 @@ def bench_decode(
     ebn0_db: float = 2.0,
     reps: int = 30,
     impl: str = "auto",
-    phase1_iters: int | None = None,
-    compact_budget: int | None = None,
     *,
     device="cuda",
     profile: str | None = None,
@@ -77,8 +67,7 @@ def bench_decode(
     device = resolve_device(device)
     fn = build_bench_decoder(
         code, iters=iters, algo=algo, alpha=alpha, schedule=schedule,
-        early_stop=early_stop, impl=impl, phase1_iters=phase1_iters,
-        compact_budget=compact_budget, device=device)
+        early_stop=early_stop, impl=impl, device=device)
     timer = make_timer(code, batch, ebn0_db, device=device)
     with _profiled(profile, str(device), 0):
         dt = timer.measure(fn, reps=reps)["median_s"]
@@ -96,26 +85,17 @@ def main(argv=None):
     p.add_argument("--rate", default="1/2")
     p.add_argument("--z", type=int, default=64)
     p.add_argument("--batch", type=int, default=4096)
-    p.add_argument("--iters", type=int, default=None,
-                   help="iteration budget (default: the cell's knob-table "
-                        "value for impl=twophase, else 50)")
+    p.add_argument("--iters", type=int, default=50,
+                   help="iteration budget")
     p.add_argument("--algo", default="minsum")
     p.add_argument("--schedule", default="flooding")
     p.add_argument("--early-stop", action="store_true")
-    p.add_argument("--ebn0", type=float, default=None,
-                   help="operating point (default: the cell's knob-table "
-                        "point for impl=twophase, else 2.0)")
+    p.add_argument("--ebn0", type=float, default=2.0,
+                   help="operating point, Eb/N0 in dB")
     p.add_argument("--reps", type=int, default=30,
                    help="back-to-back decodes a timed run")
     p.add_argument("--impl", default="auto",
-                   choices=["auto", "torch", "cuda", "jnp", "pallas",
-                            "twophase"])
-    p.add_argument("--phase1-iters", type=int, default=None,
-                   help="impl=twophase: phase-1 iteration budget "
-                        "(default: the knob table)")
-    p.add_argument("--compact-budget", type=int, default=None,
-                   help="impl=twophase: phase-2 compacted batch size "
-                        "(default: the knob table)")
+                   choices=["auto", "torch", "cuda", "jnp", "pallas"])
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--profile", metavar="DIR",
@@ -132,25 +112,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     code = CodeSpec(family=args.family, rate=args.rate, Z=args.z).build()
 
-    if args.ebn0 is None or args.iters is None:
-        # the knob table's operating point applies to impl=twophase
-        # alone (its knobs were chosen there); every other impl keeps
-        # 2.0 dB and 50 iterations, as the JAX package's benchmark
-        entry = None
-        if args.impl == "twophase":
-            from tpu_ldpc_torch.decode.knobs import registry_entry
-
-            entry = registry_entry(code, args.schedule)
-        if args.ebn0 is None:
-            args.ebn0 = (entry or {}).get("ebn0_db", 2.0)
-        if args.iters is None:
-            args.iters = (entry or {}).get("iters", 50)
-
     dt, thpt = bench_decode(
         code, batch=args.batch, iters=args.iters, algo=args.algo,
         schedule=args.schedule, early_stop=args.early_stop,
         ebn0_db=args.ebn0, reps=args.reps, impl=args.impl,
-        phase1_iters=args.phase1_iters, compact_budget=args.compact_budget,
         device=device, profile=args.profile,
     )
 

@@ -4,8 +4,7 @@
     python -m tpu_ldpc_torch.cli.sim --family judged --ebn0 1.0 2.0 3.0 \
         --device cuda --target-fe 100 --csv out.csv --checkpoint sweep.json
     python -m tpu_ldpc_torch.cli.sim --family judged --ebn0 2.0 \
-        --schedule layered --iters 25 --impl twophase \
-        --phase1-iters 9 --compact-budget 768
+        --schedule layered --iters 25
     python -m tpu_ldpc_torch.cli.sim --family judged --ebn0 2.0 \
         --quant-bits 6 --quant-step 0.25
     python -m tpu_ldpc_torch.cli.sim --family judged \
@@ -22,11 +21,10 @@ runs the plain PyTorch path.  ``--algo`` minsum | sumproduct |
 sumproduct-fast | bitflip | wbf (the last two hard-decision),
 ``--schedule`` flooding | layered | windowed (SC chains: ``--window``
 block-rows, ``--iters`` per slide, ``--window-sweep`` flooding |
-layered), ``--impl`` auto |
-torch | cuda | twophase (with ``--phase1-iters`` / ``--compact-budget``),
-fixed-point min-sum with ``--quant-bits`` / ``--quant-step`` /
-``--quant-post-bits``.  ``--find-fer FER`` bisects for the Eb/N0 at that
-FER between min and max of ``--ebn0`` instead of sweeping.
+layered), ``--impl`` auto | torch | cuda, fixed-point min-sum with
+``--quant-bits`` / ``--quant-step`` / ``--quant-post-bits``.
+``--find-fer FER`` bisects for the Eb/N0 at that FER between min and max
+of ``--ebn0`` instead of sweeping.
 ``--family nr | nr2`` builds the NR-like codes (their two high-degree
 systematic blocks punctured unless ``--puncture-blocks`` /
 ``--shorten-blocks`` name another adaptation); ``--crc`` attaches an
@@ -90,13 +88,7 @@ def build_parser():
                    help="attach an outer CRC to the info block and gate "
                         "the detected / undetected counters on it")
     p.add_argument("--impl", choices=["auto", "torch", "cuda", "jnp",
-                                      "pallas", "twophase"])
-    p.add_argument("--phase1-iters", type=int,
-                   help="impl=twophase: phase-1 iteration budget K "
-                        "(tune with decode.twophase.tune_phase1_iters)")
-    p.add_argument("--compact-budget", type=int,
-                   help="impl=twophase: compacted phase-2 batch size "
-                        "(too small: the full batch is decoded again)")
+                                      "pallas"])
     p.add_argument("--device", help="cuda (default) or cpu")
     p.add_argument("--batch", type=int)
     p.add_argument("--target-fe", type=int)
@@ -133,8 +125,6 @@ def args_to_config(args):
         "decode.quant_bits": args.quant_bits,
         "decode.quant_step": args.quant_step,
         "decode.quant_post_bits": args.quant_post_bits,
-        "decode.phase1_iters": args.phase1_iters,
-        "decode.compact_budget": args.compact_budget,
         "run.batch": args.batch, "run.target_frame_errors": args.target_fe,
         "run.max_frames": args.max_frames, "run.seed": args.seed,
         "run.state_path": args.checkpoint, "run.out_csv": args.csv,

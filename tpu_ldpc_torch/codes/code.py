@@ -5,8 +5,7 @@ Pure NumPy.  The device side sees only the frozen arrays it derives
 (base matrix, Tanner layout, generator parity map), through
 ``codes_device.to_device``.  ``LdpcCode.from_base_graph(B, Z, name)``
 carries a code of the JAX package across: the same B, Z and name give
-the same H, layout and parity map, and the name keys the two-phase knob
-table (``decode/knobs.py``).
+the same H, layout and parity map.
 """
 
 from __future__ import annotations

@@ -15,10 +15,7 @@ or 'layered'); both are plain PyTorch on any device and take no
   version for CPU tensors -- chosen by the tensor's device, never as a
   fallback;
 - ``'torch'``: the plain PyTorch version on any device;
-- ``'cuda'``: the CUDA kernel; raises for a tensor that is not on the card;
-- ``'twophase'``: two-phase ET with straggler compaction
-  (``decode/twophase.py``), bit-identical to single-pass ET; its knobs
-  resolve through ``decode/knobs.py``.
+- ``'cuda'``: the CUDA kernel; raises for a tensor that is not on the card.
 
 Quantization with ``bitflip`` / ``wbf`` or the windowed schedule raises
 ValueError, as does ``window_sweep`` outside the windowed schedule, as in
@@ -51,10 +48,10 @@ from tpu_ldpc_torch.decode.flood_plan import (
 from tpu_ldpc_torch.spans import span
 
 _NOT_PORTED_IMPL = {
-    "pallas": "the TPU kernel's counterpart is impl='cuda' "
-              "(ROADMAP Queue 2)",
-    "jnp": "the jnp reference's counterpart is impl='torch' "
-           "(ROADMAP Queue 1 item 1)",
+    "pallas": "the TPU kernel's counterpart is impl='cuda'",
+    "jnp": "the jnp reference's counterpart is impl='torch'",
+    "twophase": "the single-pass early-terminated decoder, impl='auto', "
+                "gives the same bits, ok and iters_used",
 }
 
 
@@ -65,13 +62,11 @@ def build_decode_fn(code: LdpcCode, cfg, device, mesh=None, *,
     Returns fn(llr (batch, n) float32 on `device`) -> (bits, ok, iters_used)
     with early termination on; early_stop=False runs every iteration
     (the throughput benchmark's fixed-work point).  Only the flooding and
-    layered BP decoders of one device take it, and impl='twophase',
-    early-terminating by construction, ignores it as the JAX package's
-    benchmark does.  mesh: a ``dist.mesh.Mesh``; a code the flooding
-    kernel cannot hold in shared memory then decodes on the ring or the
-    partitioned decoder (module docstring), which every rank of the mesh
-    calls with the same LLRs; without a mesh it takes the flooding
-    kernel's device-memory form."""
+    layered BP decoders of one device take it.  mesh: a
+    ``dist.mesh.Mesh``; a code the flooding kernel cannot hold in shared
+    memory then decodes on the ring or the partitioned decoder (module
+    docstring), which every rank of the mesh calls with the same LLRs;
+    without a mesh it takes the flooding kernel's device-memory form."""
     device = resolve_device(device)
     impl = getattr(cfg, "impl", "auto")
     if not early_stop and (cfg.algo in ("bitflip", "wbf")
@@ -145,23 +140,11 @@ def _build_bp(code: LdpcCode, cfg, device, impl: str, quant: dict,
             f"impl={impl!r} is not available in the port: "
             f"{_NOT_PORTED_IMPL[impl]}"
         )
-    if impl not in ("auto", "torch", "cuda", "twophase"):
+    if impl not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "cuda" and device.type != "cuda":
         raise ValueError(f"impl='cuda' needs a CUDA device, got {device}")
 
-    if impl == "twophase":
-        from tpu_ldpc_torch.decode.knobs import resolve_twophase_knobs
-        from tpu_ldpc_torch.decode.twophase import build_twophase_decoder
-
-        k, b, source = resolve_twophase_knobs(
-            code, cfg.schedule, getattr(cfg, "phase1_iters", None),
-            getattr(cfg, "compact_budget", None))
-        return build_twophase_decoder(
-            code, iters=cfg.iters, phase1_iters=k, budget=b,
-            warn_on_fallback=source != "explicit", algo=cfg.algo,
-            alpha=cfg.alpha, beta=cfg.beta, schedule=cfg.schedule,
-            normalize=False, **quant)
     if impl == "torch":
         from tpu_ldpc_torch.decode.reference import build_decoder
 
@@ -189,8 +172,6 @@ def decode(
     quant_bits: int | None = None,
     quant_step: float = 0.5,
     quant_post_bits: int | None = None,
-    phase1_iters: int | None = None,
-    compact_budget: int | None = None,
     window: int = 8,
     window_sweep: str = "flooding",
     device=None,
@@ -211,6 +192,5 @@ def decode(
     cfg = DecodeCfg(algo=algo, iters=iters, alpha=alpha, beta=beta,
                     schedule=schedule, impl=impl, quant_bits=quant_bits,
                     quant_step=quant_step, quant_post_bits=quant_post_bits,
-                    phase1_iters=phase1_iters, compact_budget=compact_budget,
                     window=window, window_sweep=window_sweep)
     return build_decode_fn(code, cfg, device)(llrs)

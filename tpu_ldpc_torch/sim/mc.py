@@ -64,7 +64,7 @@ class DecodeCfg:
     alpha: float = 0.75
     beta: float = 0.0
     schedule: str = "flooding"  # 'flooding' | 'layered' | 'windowed'
-    impl: str = "auto"          # 'auto' | 'torch' | 'cuda' | 'twophase'
+    impl: str = "auto"          # 'auto' | 'torch' | 'cuda'
     # schedule='windowed' only (SC-LDPC chains, decode/windowed.py):
     # window width in block-rows; iters then counts iterations PER
     # WINDOW SLIDE, not in all.  window_sweep picks the schedule inside
@@ -77,11 +77,6 @@ class DecodeCfg:
     quant_bits: int | None = None
     quant_step: float = 0.5
     quant_post_bits: int | None = None
-    # impl='twophase' only (decode/twophase.py): phase-1 iteration budget
-    # K and the compacted phase-2 batch size.  None resolves them from the
-    # knob table or the code rate (decode/knobs.py); explicit values win.
-    phase1_iters: int | None = None
-    compact_budget: int | None = None
 
 
 COUNTER_FIELDS = (
