@@ -1702,7 +1702,8 @@ def _gmem_path(dev, smi):
     counters, and the counters of build_mc_step's own call on that batch,
     against plain_counters of the plain decode; decode() on the LLRs;
     every decode launches minsum_flood_gmem with L and P in shared memory
-    (minsum_flood_gmem_smem) and no shared-memory kernel.  Then K1g's ms a
+    (minsum_flood_gmem_smem), its rows in the one-gather form
+    (minsum_flood_one_gather), and no shared-memory kernel.  Then K1g's ms a
     batch at 50 iterations ET off (and ET on at the cell's Eb/N0) beside
     its bound and the plain decoder's, in its own placement and with L and
     P in the scratch (the limit at 0), which must give the same bits.
@@ -1757,7 +1758,8 @@ def _gmem_path(dev, smi):
         raise AssertionError(f"[gmem] K1g's path differs from the plain "
                              f"versions at {GMEM_SHAPE}")
     if launches != {"minsum_flood": 3, "minsum_flood_gmem": 3,
-                    "minsum_flood_gmem_smem": 3}:
+                    "minsum_flood_gmem_smem": 3,
+                    "minsum_flood_one_gather": 3}:
         raise AssertionError(f"[gmem] 3 decodes: launches {launches}")
 
     run_off = build_cuda_decoder(code, "minsum", 50, 0.75, 0.0, "flooding",

@@ -465,10 +465,15 @@ def test_flood_buckets_vs_plain_and_golden(cuda, family, rate, Z, ebn0,
     """One code per instantiation of the flooding body: judged (row
     degree 7 -> 8 slots), wifi 3/4 Z=27 (16 -> 16), wimax 5/6 Z=48 (20 ->
     32), and the two-pass kernel for 1152 checks and for a row of degree
-    40.  Min-sum, sumproduct-fast and fixed-point, in plain and
-    normalized coordinates, ET on and off, the +-0.0 and 1e4 rows
-    included: bit-exact with the plain version and with golden float32
-    (golden's per-frame loops are slow: its first rows)."""
+    40.  Min-sum, sumproduct-fast, fixed-point and rescaled min-sum, in
+    plain and normalized coordinates, ET on and off, the +-0.0 and 1e4
+    rows included: bit-exact with the plain version and with golden
+    float32 (golden's per-frame loops are slow: its first rows); bf16
+    messages bit-exact with the plain version; exact sum-product on >=
+    0.99 of frames.  The two-pass kernel's rows of at most 32 slots send
+    from the first pass's signs (<name>_one_gather counts the launch)
+    under every CN update but exact sum-product; the row of 40 and exact
+    sum-product recompute q."""
     if family == "deg40":
         ref, code = wide_codes()
         rng = np.random.default_rng(4)
@@ -482,16 +487,29 @@ def test_flood_buckets_vs_plain_and_golden(cuda, family, rate, Z, ebn0,
     assert flood_plan(code, coordinates(code, False)[0]).bucket == bucket
     llr = torch.from_numpy(llr_np).to(cuda)
     for algo, q in (("minsum", {}), ("sumproduct-fast", {}),
-                    ("minsum", dict(quant_bits=6, quant_step=0.25))):
+                    ("minsum", dict(quant_bits=6, quant_step=0.25)),
+                    ("minsum", dict(rescaled=True)),
+                    ("minsum", dict(msg_dtype=torch.bfloat16)),
+                    ("sumproduct-fast", dict(msg_dtype=torch.bfloat16)),
+                    ("sumproduct", {})):
+        one_gather = (bucket == 0 and family != "deg40"
+                      and algo != "sumproduct")
         for normalize in (False, True):
             for early_stop in (True, False):
                 args = (code, algo, 50, 0.75, 0.0, "flooding", early_stop)
                 fn = build_cuda_decoder(*args, normalize=normalize, **q)
-                before = LAUNCHES[fn.kernel]
+                names = (fn.kernel, f"{fn.kernel}_one_gather")
+                before = [LAUNCHES[name] for name in names]
                 got = fn(llr)
-                assert LAUNCHES[fn.kernel] == before + 1
-                assert_same(got, build_decoder(*args, normalize=normalize,
-                                               **q)(llr))
+                assert [LAUNCHES[name] for name in names] == [
+                    before[0] + 1, before[1] + one_gather]
+                want = build_decoder(*args, normalize=normalize, **q)(llr)
+                if algo == "sumproduct":  # tanhf / logf
+                    assert frame_agreement(got, want) >= 0.99
+                    continue
+                assert_same(got, want)
+                if "msg_dtype" in q:
+                    continue
                 assert_same([x[:GOLDEN_ROWS] for x in got], golden_decode(
                     ref.H, llr_np[:GOLDEN_ROWS], algo=algo, iters=50,
                     alpha=0.75, dtype=np.float32, early_stop=early_stop,

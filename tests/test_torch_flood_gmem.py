@@ -41,9 +41,9 @@ from tpu_ldpc_torch.codes.nrlike import (
 from tpu_ldpc_torch.decode import cuda_bp
 from tpu_ldpc_torch.decode.flood_plan import (
     GENERIC_THREADS, GMEM_SHARED_LP_THREADS, GMEM_STATE_ALIGN,
-    SMEM_LIMIT_BYTES, VN_BASE_BITS, choose_bucket, code_flood_smem_bytes,
-    flood_gmem_smem_bytes, flood_gmem_state_bytes, flood_plan,
-    flood_smem_bytes, gmem_placement)
+    SIGN_SLOTS, SMEM_LIMIT_BYTES, VN_BASE_BITS, choose_bucket,
+    code_flood_smem_bytes, flood_gmem_smem_bytes, flood_gmem_state_bytes,
+    flood_plan, flood_smem_bytes, gmem_placement, one_gather)
 from tpu_ldpc_torch.decode.normalize import coordinates
 from tpu_ldpc_torch.decode.reference import build_decoder
 from test_torch_flood_tables import table_decoder
@@ -205,6 +205,69 @@ def test_cells_within_the_limit_keep_the_shared_memory_kernel():
         assert plan.bucket == bucket
 
 
+def wide_row(deg):
+    """Two block-rows at Z = 5, the first of `deg` slots."""
+    B = np.full((2, deg), -1)
+    B[0, :] = np.arange(deg) % 5
+    B[1, :4] = [1, 2, 3, 4]
+    return LdpcCode.from_base_graph(B, 5, f"deg{deg}")
+
+
+@pytest.fixture(scope="module")
+def z384():
+    return nrlike_code("1/2", 384)
+
+
+# (code, algo, K1g, one gather): bucket 0's rows (K1 bucket 0, or K1g
+# whatever the bucket) of at most SIGN_SLOTS slots, any CN update but
+# exact sum-product
+ONE_GATHER = [
+    ("nr1-z64", "minsum", False, True),
+    ("nr1-z64", "sumproduct-fast", False, True),
+    ("nr1-z64", "sumproduct", False, False),
+    ("nr1-z384", "minsum", True, True),
+    ("nr1-z384", "sumproduct-fast", True, True),
+    ("nr1-z384", "sumproduct", True, False),
+    ("judged", "minsum", False, False),           # bucket 8, one pass
+    ("judged", "sumproduct-fast", False, False),
+    ("judged", "minsum", True, True),             # forced onto K1g
+    ("deg32", "minsum", False, False),            # bucket 32, one pass
+    ("deg32", "minsum", True, True),
+    ("deg33", "minsum", False, False),
+    ("deg33", "sumproduct-fast", True, False),
+]
+
+
+@pytest.mark.parametrize("key,algo,gmem,want", ONE_GATHER,
+                         ids=[f"{k}-{a}-{'k1g' if g else 'k1'}"
+                              for k, a, g, _ in ONE_GATHER])
+def test_one_gather_follows_the_rows_and_the_cn_update(z384, key, algo,
+                                                        gmem, want):
+    """The launch's form, as the counter <name>_one_gather reports it:
+    from the plan's largest row and the CN update alone."""
+    code = {"nr1-z64": lambda: nrlike_code("1/2", 64), "nr1-z384": lambda:
+            z384, "judged": LdpcCode.judged, "deg32": lambda: wide_row(32),
+            "deg33": lambda: wide_row(33)}[key]()
+    plan = flood_plan(code, coordinates(code, False)[0])
+    assert plan.bucket == {"judged": 8, "deg32": 32}.get(key, 0)
+    assert one_gather(plan, algo, gmem) == want
+
+
+def test_sign_slots_is_the_kernels_register_width():
+    """SIGN_SLOTS is csrc/bp_flood.cu's kSignSlots, the bits of the one
+    register that holds a row's signs."""
+    import pathlib
+    import re
+
+    import tpu_ldpc_torch
+
+    src = (pathlib.Path(tpu_ldpc_torch.__file__).parent / "csrc"
+           / "bp_flood.cu").read_text()
+    assert re.findall(r"constexpr int kSignSlots = (\d+);", src) == [
+        str(SIGN_SLOTS)] == ["32"]
+    assert "uint32_t negs" in src
+
+
 # ---- K1g's order of operations in torch ops -------------------------------
 
 
@@ -324,8 +387,8 @@ def force_gmem(monkeypatch, code, placement):
 
 
 def gmem_launches(kernel):
-    return (cuda_bp.LAUNCHES[f"{kernel}_gmem"],
-            cuda_bp.LAUNCHES[f"{kernel}_gmem_smem"])
+    return tuple(cuda_bp.LAUNCHES[f"{kernel}{suffix}"]
+                 for suffix in ("_gmem", "_gmem_smem", "_one_gather"))
 
 
 @pytest.mark.cuda
@@ -338,19 +401,26 @@ def test_gmem_kernel_on_codes_forced_onto_it(cuda, monkeypatch, key, mode,
     """With the limit lowered every code takes K1g, in either placement of
     L and P: it equals the shared-memory kernel bit for bit in every mode,
     and the plain decoder in every mode but exact sum-product (tanhf /
-    logf)."""
+    logf).  K1g's rows send from the first pass's signs (and count
+    <name>_one_gather) but for the row of 40 slots and exact sum-product,
+    which recompute q; the shared-memory kernel's only in bucket 0."""
     code = FORCED[key]()
     kw = dict(normalize=False)
     kw.update(MODES[mode])
     algo = kw.pop("algo")
     fn = build_cuda_decoder_for(code, algo, early_stop, kw)
     llr = noisy(code, 200, 1.5, 3, cuda, 2 if key.startswith("nr") else 0)
+    one_gather = key != "deg40" and algo != "sumproduct"
+    bucket = flood_plan(code, coordinates(code, False)[0]).bucket
+    gmem, smem, og = gmem_launches(fn.kernel)
     want = fn(llr)
-    gmem, smem = gmem_launches(fn.kernel)
+    assert gmem_launches(fn.kernel) == (
+        gmem, smem, og + (one_gather and bucket == 0))
+    gmem, smem, og = gmem_launches(fn.kernel)
     force_gmem(monkeypatch, code, placement)
     got = fn(llr)
     assert gmem_launches(fn.kernel) == (
-        gmem + 1, smem + (placement == "shared-lp"))
+        gmem + 1, smem + (placement == "shared-lp"), og + one_gather)
     assert_same(got, want)
     if algo != "sumproduct":
         assert_same(got, build_decoder(code, algo, 30, ALPHA, 0.0,
@@ -360,11 +430,6 @@ def test_gmem_kernel_on_codes_forced_onto_it(cuda, monkeypatch, key, mode,
 def build_cuda_decoder_for(code, algo, early_stop, kw):
     return cuda_bp.build_cuda_decoder(code, algo, 30, ALPHA, 0.0, "flooding",
                                       early_stop, **kw)
-
-
-@pytest.fixture(scope="module")
-def z384():
-    return nrlike_code("1/2", 384)
 
 
 @pytest.mark.cuda
@@ -380,10 +445,10 @@ def test_gmem_kernel_z384_equals_plain(cuda, monkeypatch, z384, algo,
                                     early_stop, normalize=False)
     if placement == "scratch-lp":
         monkeypatch.setattr(cuda_bp, "SMEM_LIMIT_BYTES", 0)
-    gmem, smem = gmem_launches(fn.kernel)
+    gmem, smem, og = gmem_launches(fn.kernel)
     got = fn(llr)
     assert gmem_launches(fn.kernel) == (
-        gmem + 1, smem + (placement == "shared-lp"))
+        gmem + 1, smem + (placement == "shared-lp"), og + 1)
     assert_same(got, build_decoder(z384, algo, 50, ALPHA, 0.0, "flooding",
                                    early_stop)(llr))
     assert 0 < int(got[1].sum())
@@ -398,16 +463,17 @@ def test_decode_and_mc_step_take_the_gmem_kernel(cuda, z384):
     from tpu_ldpc_torch.sim.mc import DecodeCfg, build_mc_step
 
     llr = noisy(z384, 16, 1.2, 7, cuda, 2)
-    gmem, smem = gmem_launches("minsum_flood")
+    gmem, smem, og = gmem_launches("minsum_flood")
     bits, ok, iu = decode(z384, llr)
-    assert gmem_launches("minsum_flood") == (gmem + 1, smem + 1)
+    assert gmem_launches("minsum_flood") == (gmem + 1, smem + 1, og + 1)
     assert bits.device.type == "cuda"
     adapt = nrlike_adapt(z384)
     step = build_mc_step(z384, DecodeCfg(), 64, 2, adapt, device=cuda)
-    gmem, smem = gmem_launches("minsum_flood")
+    gmem, smem, og = gmem_launches("minsum_flood")
     got = step(2**31 + 3, 0, 1.2, 0).tolist()
-    # every K1g launch of the step keeps L and P in shared memory
-    assert gmem_launches("minsum_flood") == (gmem + 2, smem + 2)
+    # every K1g launch of the step keeps L and P in shared memory and
+    # sends from the signs
+    assert gmem_launches("minsum_flood") == (gmem + 2, smem + 2, og + 2)
     plain = build_mc_step(z384, DecodeCfg(impl="torch"), 64, 2, adapt,
                           device=cuda)
     assert got == plain(2**31 + 3, 0, 1.2, 0).tolist()

@@ -15,7 +15,10 @@
 // add_kept / out_kept,
 // which let a CN update keep one value per edge beside q (exact
 // sum-product keeps phi(|q|), so it evaluates phi twice per edge, not
-// three times, on the same arguments).
+// three times, on the same arguments).  Where out reads q only as
+// q < 0 (CN::kOutFromSign: every update but exact sum-product), it is
+// defined as out_neg(t, q < 0.0f), so a two-pass caller may keep the
+// row's signs from the first pass and send out_neg from them.
 //
 // Signs read `q < 0` (so -0.0 is positive) and messages are formed as
 // (total_sign * own_sign) * magnitude, as golden and the plain PyTorch
@@ -59,6 +62,7 @@ __device__ __forceinline__ int state_index(int v, const int32_t* col_off,
 // between them: the same operations on the same inputs as scaling the
 // selected minimum per edge, so the same floats.
 struct MinSum {
+  static constexpr bool kOutFromSign = true;
   float alpha, beta;
   float min1, min2, s1, s2;
   int argmin, neg;
@@ -91,10 +95,13 @@ struct MinSum {
   __device__ __forceinline__ float scaled(float m) const {
     return alpha * fmaxf(m - beta, 0.0f);
   }
-  __device__ __forceinline__ float out(int t, float q) const {
+  __device__ __forceinline__ float out_neg(int t, bool own_neg) const {
     const float total_sign = neg ? -1.0f : 1.0f;
-    const float sign = q < 0.0f ? -1.0f : 1.0f;
+    const float sign = own_neg ? -1.0f : 1.0f;
     return (total_sign * sign) * (t == argmin ? s2 : s1);
+  }
+  __device__ __forceinline__ float out(int t, float q) const {
+    return out_neg(t, q < 0.0f);
   }
 };
 
@@ -103,10 +110,13 @@ struct MinSum {
 // no multiply (max(m - 0, 0) == m for the +0.0-or-positive m of fabsf).
 // The 1/alpha scaling lives in the channel term, once per variable.
 struct MinSumUnit : MinSum {
-  __device__ __forceinline__ float out(int t, float q) const {
+  __device__ __forceinline__ float out_neg(int t, bool own_neg) const {
     const float total_sign = neg ? -1.0f : 1.0f;
-    const float sign = q < 0.0f ? -1.0f : 1.0f;
+    const float sign = own_neg ? -1.0f : 1.0f;
     return (total_sign * sign) * (t == argmin ? min2 : min1);
+  }
+  __device__ __forceinline__ float out(int t, float q) const {
+    return out_neg(t, q < 0.0f);
   }
 };
 
@@ -140,6 +150,7 @@ __device__ __forceinline__ float phi(float x) {
 // Exact sum-product: phi of each |q| summed in edge order, output
 // (total_sign * own_sign) * phi(tot - phi_e).  alpha / beta are unused.
 struct SumProduct {
+  static constexpr bool kOutFromSign = false;  // out reads phi(|q|)
   float alpha, beta;
   float tot;
   int neg;
@@ -188,6 +199,7 @@ __device__ __forceinline__ float fpair(float a, float b) {
 // 1: its own |q|; degree 2: t == a1 ? m2 : m1; degree >= 3: t == a1 ?
 // f(m2, m3) : t == a2 ? f(m1, m3) : f(m1, m2).  alpha / beta are unused.
 struct SumProductFast {
+  static constexpr bool kOutFromSign = true;
   float alpha, beta;
   float m1, m2, m3, f12, f13, f23;
   int a1, a2, deg, neg;
@@ -227,9 +239,9 @@ struct SumProductFast {
       f12 = fpair(m1, m2);
     }
   }
-  __device__ __forceinline__ float out(int t, float q) const {
+  __device__ __forceinline__ float out_neg(int t, bool own_neg) const {
     const float total_sign = neg ? -1.0f : 1.0f;
-    const float sign = q < 0.0f ? -1.0f : 1.0f;
+    const float sign = own_neg ? -1.0f : 1.0f;
     float mag;
     if (deg == 1) {
       mag = m1;
@@ -239,6 +251,9 @@ struct SumProductFast {
       mag = t == a1 ? f23 : (t == a2 ? f13 : f12);
     }
     return (total_sign * sign) * mag;
+  }
+  __device__ __forceinline__ float out(int t, float q) const {
+    return out_neg(t, q < 0.0f);
   }
 };
 

@@ -102,9 +102,13 @@
 // indices do not fit 16 bits above 8 slots, runs kMaxDeg = 0: the same
 // state, layout and VN pass, a block of 256 threads each taking checks
 // c, c + 256, ... ((i, r) stepped without a division) in two passes over
-// its row, the per-edge tables in shared memory.  Several codewords per
-// block (to fill the warps of small codes) was not taken: one codeword
-// per block already has 16 warps on the judged code.
+// its row, the per-edge tables in shared memory.  For rows of at most 32
+// slots under every CN update but exact sum-product, the first pass keeps
+// the signs of its q in a register and the second sends from them, so
+// each edge's P and R are gathered once an iteration, as in the buckets;
+// longer rows and exact sum-product recompute q in the second pass.
+// Several codewords per block (to fill the warps of small codes) was not
+// taken: one codeword per block already has 16 warps on the judged code.
 //
 // K1g, bp_flood_gmem_kernel: a code whose state exceeds one block's
 // shared memory (decode/flood_plan.py's SMEM_LIMIT_BYTES; NR BG1 at
@@ -232,14 +236,23 @@ __device__ __forceinline__ int check_parity(const Slots<kMaxDeg>& s,
   return parity;
 }
 
+// The most slots of a row whose q signs bucket 0 keeps in one register
+// (flood_plan.SIGN_SLOTS).
+constexpr int kSignSlots = 32;
+
 // kMaxDeg = 0: this thread's checks c = threadIdx.x + k * blockDim.x with
 // (i, r) stepped by (di, dr) = divmod(blockDim.x, Z), rows of any degree.
 struct GenericRows {
   const int32_t *row_ptr, *e_p, *e_r, *e_shift;  // shared memory
   int i0, r0, di, dr;
 
-  // CN pass: two passes over each row, the second recomputing q from the
-  // same operands.  Returns the number of violated pre-pass checks.
+  // CN pass: two passes over each row, the first feeding cn.add, the
+  // second storing each slot's output.  Where out reads q only as q < 0
+  // (CN::kOutFromSign) and the row has at most kSignSlots slots, the first
+  // keeps q's signs in `negs` and the second stores out_neg from them,
+  // loading no P and no R: one gather of each an edge, not two.  Otherwise
+  // (exact sum-product, longer rows) the second recomputes q from the same
+  // operands.  Returns the number of violated pre-pass checks.
   template <class CN, class QP, class MP>
   __device__ __forceinline__ int cn_pass(const float* P, typename MP::T* R,
                                          const CN& proto, const QP& quant,
@@ -253,23 +266,58 @@ struct GenericRows {
       CN cn = proto;
       cn.begin();
       int parity = 0;
+      uint32_t negs = 0;  // bit t: q_t < 0 (a longer row's bits unused)
       for (int e = e0; e < e1; ++e) {
         const int z = wrap_add(r, e_shift[e], Z);
         const float p = P[e_p[e] + z];
-        cn.add(e - e0, quant.sat(p - MP::load(R[e_r[e] + z])));
+        const float q = quant.sat(p - MP::load(R[e_r[e] + z]));
+        cn.add(e - e0, q);
+        if constexpr (CN::kOutFromSign) {
+          negs |= (uint32_t)(q < 0.0f) << ((e - e0) & (kSignSlots - 1));
+        }
         parity ^= p < 0.0f;
       }
       cn.finish(e1 - e0);
-      for (int e = e0; e < e1; ++e) {
-        const int z = wrap_add(r, e_shift[e], Z);
-        const int k = e_r[e] + z;
-        const float q = quant.sat(P[e_p[e] + z] - MP::load(R[k]));
-        R[k] = MP::store(quant.quantize(cn.out(e - e0, q)));
+      if constexpr (CN::kOutFromSign) {
+        if (e1 - e0 <= kSignSlots) {
+          send_from_signs<QP, MP>(cn, quant, R, e0, e1, r, Z, negs);
+        } else {
+          send_recomputed<QP, MP>(cn, quant, P, R, e0, e1, r, Z);
+        }
+      } else {
+        send_recomputed<QP, MP>(cn, quant, P, R, e0, e1, r, Z);
       }
       viol += parity;
       step(i, r, Z);
     }
     return viol;
+  }
+
+  template <class QP, class MP, class CN>
+  __device__ __forceinline__ void send_from_signs(const CN& cn,
+                                                  const QP& quant,
+                                                  typename MP::T* R, int e0,
+                                                  int e1, int r, int Z,
+                                                  uint32_t negs) const {
+    for (int e = e0; e < e1; ++e, negs >>= 1) {
+      const int k = e_r[e] + wrap_add(r, e_shift[e], Z);
+      R[k] = MP::store(quant.quantize(cn.out_neg(e - e0, negs & 1u)));
+    }
+  }
+
+  template <class QP, class MP, class CN>
+  __device__ __forceinline__ void send_recomputed(const CN& cn,
+                                                  const QP& quant,
+                                                  const float* P,
+                                                  typename MP::T* R, int e0,
+                                                  int e1, int r,
+                                                  int Z) const {
+    for (int e = e0; e < e1; ++e) {
+      const int z = wrap_add(r, e_shift[e], Z);
+      const int k = e_r[e] + z;
+      const float q = quant.sat(P[e_p[e] + z] - MP::load(R[k]));
+      R[k] = MP::store(quant.quantize(cn.out(e - e0, q)));
+    }
   }
 
   __device__ __forceinline__ int violations(const float* P, int Z,

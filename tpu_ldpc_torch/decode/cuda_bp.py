@@ -24,8 +24,12 @@ layered and compressed schedules raise there, naming the flooding one.
 Each launch adds one to ``LAUNCHES[fn.kernel]``, a launch in normalized
 coordinates also to ``LAUNCHES[fn.kernel + '_normalized']`` (shift
 normalization is a mode of the same kernel body), a launch of K1g also to
-``LAUNCHES[fn.kernel + '_gmem']``, and one of K1g with L and P in shared
-memory also to ``LAUNCHES[fn.kernel + '_gmem_smem']``.  Kernel names:
+``LAUNCHES[fn.kernel + '_gmem']``, one of K1g with L and P in shared
+memory also to ``LAUNCHES[fn.kernel + '_gmem_smem']``, and a flooding
+launch whose rows all take bucket 0's one-gather form
+(``flood_plan.one_gather``: K1 bucket 0 or K1g, rows of at most 32 slots,
+any CN update but exact sum-product) also to
+``LAUNCHES[fn.kernel + '_one_gather']``.  Kernel names:
 
 - ``minsum_flood`` / ``minsum_layered``: K1 / K2, min-sum;
 - ``sumproduct_flood`` / ``sumproduct_layered``: K3, exact sum-product;
@@ -45,7 +49,8 @@ import torch
 
 from tpu_ldpc_torch.codes.code import LdpcCode
 from tpu_ldpc_torch.decode.flood_plan import (
-    SMEM_LIMIT_BYTES, compressed_plan, flood_plan, gmem_placement)
+    SMEM_LIMIT_BYTES, compressed_plan, flood_plan, gmem_placement,
+    one_gather)
 from tpu_ldpc_torch.decode.layered_plan import layered_plan
 from tpu_ldpc_torch.decode.normalize import coordinates
 from tpu_ldpc_torch.decode.reference import (
@@ -81,10 +86,10 @@ def _all_names():
         names.append(kernel_name("minsum", sched, quantized=True))
     names.append(kernel_name("minsum", "flooding", rescaled=True))
     normalized = [f"{name}_normalized" for name in names]
-    gmem = [f"{name}_gmem{smem}" for name in names if "_flood" in name
-            for smem in ("", "_smem")]
+    flood = [f"{name}{suffix}" for name in names if "_flood" in name
+             for suffix in ("_gmem", "_gmem_smem", "_one_gather")]
     return names + [kernel_name("minsum", "flooding", compressed=True)] \
-        + normalized + gmem
+        + normalized + flood
 
 
 # kernel name -> launches since the last reset_launches()
@@ -230,9 +235,11 @@ def build_cuda_decoder(
                     plan.r_stride, int(iters), float(alpha), float(beta),
                     int(bool(early_stop)), int(bf16), *qargs, stream)
         check(lib, err, f"{name} launch")
-        gmem_counters = ((f"{name}_gmem",) if gmem else ()) + (
-            (f"{name}_gmem_smem",) if shared_lp else ())
-        for counter in counters + gmem_counters:
+        flood_counters = ((f"{name}_gmem",) if gmem else ()) + (
+            (f"{name}_gmem_smem",) if shared_lp else ()) + (
+            (f"{name}_one_gather",)
+            if flooding and one_gather(plan, algo, gmem) else ())
+        for counter in counters + flood_counters:
             LAUNCHES[counter] += 1
         return bits, ok, iu
 

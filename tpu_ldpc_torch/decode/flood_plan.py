@@ -30,7 +30,11 @@ into 16 bits each, so they also need n and E*Z below 2^16.  Every other
 code (a row above 32, more checks than threads) takes bucket 0: the
 two-pass loop over any number of checks per thread and any row degree,
 which reads the per-edge tables ``row_ptr``, ``e_p`` (col*Z), ``e_r``
-(rslot*Z) and ``e_shift`` from shared memory.
+(rslot*Z) and ``e_shift`` from shared memory.  Its second pass sends
+from the signs of the first pass's q, kept in one register, where every
+row has at most ``SIGN_SLOTS`` slots and the CN update's output reads q
+only through its sign (``one_gather``); exact sum-product and longer rows
+recompute q there.
 
 A code whose block state (``flood_smem_bytes`` in its bucket) exceeds
 ``SMEM_LIMIT_BYTES`` runs the device-memory kernel (``bp_flood_gmem_kernel``)
@@ -57,6 +61,7 @@ BUCKETS = (8, 16, 32)
 # most threads a bucket's kernel may launch (its __launch_bounds__)
 MAX_THREADS = {8: 1024, 16: 1024, 32: 512}
 GENERIC_THREADS = 256  # bucket 0
+SIGN_SLOTS = 32        # bucket 0: a row's q signs in one 32-bit register
 PACK_LIMIT = 1 << 16   # buckets above 8: indices in 16 bits
 VN_BASE_BITS = 17      # vn_info = (col_deg << 17) | base, as uint32
 SMEM_LIMIT_BYTES = 232_448  # 227 KB: the most one Hopper block may use
@@ -233,6 +238,17 @@ def flood_plan(code: LdpcCode, shifts: tuple) -> FloodPlan:
         cn_p=i32(cn_p), cn_r=i32(cn_r), cn_deg=i32(np.repeat(deg, Z)),
         vn_info=i32(_vn_info(lay, cstart)), row_ptr=i32(row_ptr),
         e_p=i32(col * Z), e_r=i32(rslot * Z), e_shift=i32(shifts))
+
+
+def one_gather(plan: FloodPlan, algo: str, gmem: bool) -> bool:
+    """Whether a flooding launch on `plan` (`gmem`: K1g) runs every row
+    in bucket 0's one-gather form: the two-pass rows (bucket 0, or K1g
+    whatever the bucket) with no row above SIGN_SLOTS slots, under a CN
+    update whose output reads q only through its sign (every `algo` but
+    exact sum-product).  GenericRows::cn_pass in csrc/bp_flood.cu takes
+    the form from the same facts, row by row."""
+    return ((plan.bucket == 0 or gmem) and algo != "sumproduct"
+            and int(np.diff(plan.row_ptr).max()) <= SIGN_SLOTS)
 
 
 # compressed row state (csrc/bp_compressed.cu): rows of degree <= 8
