@@ -46,7 +46,9 @@ mc_count) against BatchFn's torch ops bit for bit, at the cells' shapes
 too, the regroup identity and the world-1 sharded step; K1g, the flooding
 kernel's device-memory form, at the Z = 384 MC cell's shape through the
 MC step, build_decode_fn and decode() against the plain decoder bit for
-bit -- times kernels and plain versions with CUDA events, and prints:
+bit; K2g, the layered kernel's device-memory form, at NR BG2 r1/5, Z =
+384 against the plain decoder bit for bit -- times kernels and plain
+versions with CUDA events, and prints:
 
   - one line per phase, and each [slice11] and [slice12] record;
   - the card's name and power limit (nvidia-smi);
@@ -1815,6 +1817,76 @@ def _gmem_path(dev, smi):
             "shape": [code.name, b, ebn0]}
 
 
+# K2g (bp_layered_gmem_kernel): the MC cell nr2-z384-layered-mc-1.0dB's
+# code, NR BG2 r1/5 at Z = 384, whose layered state outgrows one block's
+# shared memory: (rate, Z, batch, Eb/N0 dB)
+LAYERED_GMEM_SHAPE = ("1/5", 384, 4096, 1.0)
+
+
+def _layered_gmem_path(dev, smi):
+    """K2g on the card at LAYERED_GMEM_SHAPE, the launch counters reset
+    first: all-zero codewords through AWGN at the on-air rate, the two
+    punctured block-columns erased, decoded by K2g (25 layered min-sum
+    iterations, ET off and on) and by the plain decoder, bits, ok and
+    iters_used equal; each decode launches minsum_layered_gmem.  Then
+    K2g's ms a batch ET off beside its bound and the plain decoder's, and
+    ET on.  Returns K2g's row of the kernel table."""
+    import torch
+
+    from tpu_ldpc_torch.codes.nrlike import nrlike_code
+    from tpu_ldpc_torch.decode.cuda_bp import (
+        LAUNCHES, build_cuda_decoder, reset_launches)
+    from tpu_ldpc_torch.decode.reference import build_decoder
+
+    rate, Z, b, ebn0 = LAYERED_GMEM_SHAPE
+    code = nrlike_code(rate, Z, 11, 2)
+    sigma2 = 1.0 / (2 * code.k / (code.n - 2 * Z) * 10 ** (ebn0 / 10))
+    gen = torch.Generator(device=dev).manual_seed(MC_SEEDS[1])
+    llr = (2.0 / sigma2) * (1.0 + sigma2 ** 0.5 * torch.randn(
+        (b, code.n), generator=gen, device=dev))
+    llr[:, :2 * Z] = 0.0
+    runs, plains = {}, {}
+    for et in (False, True):
+        runs[et] = build_cuda_decoder(code, "minsum", 25, 0.75, 0.0,
+                                      "layered", et, normalize=False)
+        plains[et] = build_decoder(code, "minsum", 25, 0.75, 0.0, "layered",
+                                   et)
+    reset_launches()
+    got = {et: runs[et](llr) for et in runs}
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    errs = {et: _diff(got[et], plains[et](llr))[0] for et in runs}
+    iters_on = float(got[True][2].double().sum())
+    print(f"[layered gmem] {code.name} b={b} {ebn0} dB: K2g against the "
+          f"plain decoder max |err| ET off {errs[False]}, ET on "
+          f"{errs[True]}; frames ok {int(got[True][1].sum())}, mean iters "
+          f"{iters_on / b:.4f}; launches {launches}")
+    if errs[False] or errs[True]:
+        raise AssertionError(f"[layered gmem] K2g differs from the plain "
+                             f"decoder at {LAYERED_GMEM_SHAPE}")
+    if launches != {"minsum_layered": 2, "minsum_layered_gmem": 2}:
+        raise AssertionError(f"[layered gmem] 2 decodes: launches "
+                             f"{launches}")
+    k_ms = _cuda_time_ms(lambda: runs[False](llr), 5)
+    k_on = _cuda_time_ms(lambda: runs[True](llr), 5)
+    p_ms = _cuda_time_ms(lambda: plains[False](llr), 1)
+    bound, by = _bound_ms(code, b, "minsum", b * 25)
+    bound_on, by_on = _bound_ms(code, b, "minsum", iters_on)
+    print(f"[layered gmem time] minsum_layered_gmem {code.name} b={b} 25 it "
+          f"ET off: {k_ms:.4f} ms/batch; bound {bound:.5f} ms ({by}, "
+          f"{bound / k_ms:.3%} of it); plain {p_ms:.4f} ms; {ebn0} dB ET on "
+          f"(mean iters {iters_on / b:.4f}): {k_on:.4f} ms, bound "
+          f"{bound_on:.5f} ms ({by_on}); {smi}")
+    return {"name": "minsum_layered_gmem", "route": "cuda",
+            "source": SRC + "bp_layered.cu",
+            "replaces": PALLAS + "609 layered one_iter, state beyond one "
+                                 "block's shared memory",
+            "launches": launches["minsum_layered_gmem"],
+            "max_abs_err": errs[False], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "shape": [code.name, b, ebn0]}
+
+
 def _slice12_path(dev, smi):
     """The registry tools in this process: the timing script's
     measurement of SLICE12_CELLS (single-pass layered ET, layered-25 and
@@ -2786,6 +2858,7 @@ def main() -> int:
     _slice10_times(dev, slice10["ranks"], smi)
     results += _mc_batch_path(dev, smi)
     results.append(_gmem_path(dev, smi))
+    results.append(_layered_gmem_path(dev, smi))
 
     print(f"[5] wall {time.perf_counter() - t_phase:.2f} s")
 

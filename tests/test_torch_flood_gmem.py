@@ -526,14 +526,24 @@ def test_gmem_span_in_a_profiled_decode(cuda, z384):
 def test_other_schedules_refuse_naming_flooding(cuda, monkeypatch, z384,
                                                 key, kw, limit):
     """Above the limit (Z = 384's layered state, or any code with the limit
-    at 0) the layered and compressed decoders still raise, naming the
-    flooding schedule, which takes the code."""
+    at 0) the layered decoder takes its own device-memory form, K2g
+    (``tests/test_torch_layered_gmem.py``), equal to the plain decoder;
+    the compressed decoder still raises, naming the flooding schedule,
+    which takes the code."""
     code = z384 if key == "z384" else LdpcCode.judged()
     fn = cuda_bp.build_cuda_decoder(code, "minsum", 5, **kw)
     if limit is not None:
         monkeypatch.setattr(cuda_bp, "SMEM_LIMIT_BYTES", limit)
-    with pytest.raises(ValueError, match="schedule='flooding'"):
-        fn(noisy(code, 4, 1.2, 13, cuda, 2 if key == "z384" else 0))
+    llr = noisy(code, 4, 1.2, 13, cuda, 2 if key == "z384" else 0)
+    if kw.get("schedule") != "layered":
+        with pytest.raises(ValueError, match="schedule='flooding'"):
+            fn(llr)
+        return
+    gmem = cuda_bp.LAUNCHES[f"{fn.kernel}_gmem"]
+    got = fn(llr)
+    assert cuda_bp.LAUNCHES[f"{fn.kernel}_gmem"] == gmem + 1
+    assert_same(got, build_decoder(code, "minsum", 5, ALPHA, 0.0, "layered",
+                                   True)(llr))
 
 
 @pytest.mark.cuda

@@ -173,6 +173,22 @@ def _declare(lib) -> None:
         lib.ldpc_bp_layered.restype = ctypes.c_int
         lib.ldpc_bp_layered_smem_bytes.argtypes = [i] * 9
         lib.ldpc_bp_layered_smem_bytes.restype = ctypes.c_size_t
+        lib.ldpc_bp_layered_gmem.argtypes = [
+            i,                   # algo
+            p, p, p, p,          # llr, bits, ok, iters_used
+            p, p, p,             # row_ptr, e_p, e_shift
+            p,                   # col_off
+            i, i, i, i, i,       # batch, Z, mb, nb, E
+            i, i,                # cw_threads, threads
+            i, f, f, i,          # iters, alpha, beta, early_stop
+            i,                   # msg_bf16
+            i, f, f, f, f,       # quantized, step, kmax, lim_msg, lim_post
+            p, ctypes.c_size_t,  # state, bytes a codeword
+            p,                   # stream
+        ]
+        lib.ldpc_bp_layered_gmem.restype = ctypes.c_int
+        lib.ldpc_bp_layered_gmem_smem_bytes.argtypes = [i] * 4
+        lib.ldpc_bp_layered_gmem_smem_bytes.restype = ctypes.c_size_t
     if hasattr(lib, "ldpc_bp_compressed"):
         lib.ldpc_bp_compressed.argtypes = [
             p, p, p, p,          # llr, bits, ok, iters_used

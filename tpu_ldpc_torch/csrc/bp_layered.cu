@@ -80,6 +80,24 @@
 // and shifts in shared memory, and each thread walking checks r, r +
 // cw_threads, ... when Z exceeds the block.
 //
+// K2g, bp_layered_gmem_kernel: a code whose layered state exceeds one
+// block's shared memory (decode/flood_plan.py's SMEM_LIMIT_BYTES; NR BG2
+// r1/5 at Z = 384 needs 378,040 B, most of it R) runs the same body,
+// layered_decode, with R in a slice of a scratch buffer in device memory,
+// one slice a codeword, which the caller allocates.  R is edge-major
+// there, R[e * Z + r]: consecutive checks of one edge are adjacent, so a
+// warp's loads and stores of a slot are one 128-byte line (the
+// check-major layout chosen for shared memory's banks would put r_stride
+// words between two threads).  P and bucket 0's per-edge tables stay in
+// shared memory (81,592 B at BG2 r1/5, Z = 384), one codeword a block of
+// one thread a check (up to 512), and the rows take bucket 0's two-pass
+// form whatever the code's bucket, so every mode above runs in the same
+// order of operations and K2g equals K2 bit for bit on any code both can
+// hold.  Measured on the H100 at BG2 r1/5, Z = 384 (PERF.md, K2g): two
+// such blocks an SM, their R (78 MB over the card) beyond the 50 MB L2,
+// ran faster than one (R resident in the L2), the 16-slot one-pass form
+// with its index table in shared memory, or 256 threads a codeword.
+//
 // What bounds it on the card: instruction issue and the serial chain of
 // block-rows (mb dependent row-steps per iteration, each a scan of about
 // E/mb edges behind a barrier), against the residency shared memory allows
@@ -95,6 +113,9 @@ namespace {
 using namespace ldpc;
 
 constexpr int kMaxThreads = 256;  // decode/layered_plan.py MAX_BLOCK_THREADS
+// K2g's block bound (layered_plan.GMEM_MAX_THREADS): one thread a check up
+// to Z = 512, at most 128 registers a thread
+constexpr int kGmemThreads = 512;
 
 __host__ __device__ constexpr size_t align16(size_t nbytes) {
   return (nbytes + 15) / 16 * 16;
@@ -114,16 +135,19 @@ struct Shape {
 };
 
 // The shared-memory layout of one block (ldpc_bp_layered_smem_bytes and
-// decode/layered_plan.py::smem_bytes add up the same).
+// decode/layered_plan.py::smem_bytes add up the same); K2g (r_shared
+// false) keeps no R there.
 struct Layout {
   size_t table, rows, p, per_cw, flags, total;
 
-  __host__ __device__ Layout(const Shape& s, int max_deg, size_t msg_bytes) {
+  __host__ __device__ Layout(const Shape& s, int max_deg, size_t msg_bytes,
+                             bool r_shared = true) {
     table = max_deg ? align16((size_t)s.Z * s.idx_stride * sizeof(uint16_t))
                     : align16((size_t)2 * s.E * sizeof(int32_t));
     rows = align16((size_t)(s.mb + 1) * sizeof(int32_t));
     p = align16((size_t)s.nb * s.Z * sizeof(float));
-    per_cw = p + align16((size_t)s.Z * s.r_stride * msg_bytes);
+    per_cw = p + (r_shared ? align16((size_t)s.Z * s.r_stride * msg_bytes)
+                           : 0);
     flags = table + rows + s.group * per_cw;
     total = flags + 2 * (size_t)s.group * sizeof(int);
   }
@@ -196,10 +220,10 @@ __device__ __forceinline__ int violated(const Index<kMaxDeg>& ix,
 // update, then the posterior and the new messages.  kDeg > 0: the row has
 // exactly kDeg slots (straight-line code); kDeg = 0: up to kMaxDeg slots
 // under `t < deg` predicates.
-template <class CN, class QP, class MP, int kMaxDeg, int kDeg>
+template <class CN, class QP, class MP, int kMaxDeg, int kDeg, class Row>
 __device__ __forceinline__ void update_row_one_pass(
-    const Index<kMaxDeg>& ix, int r, int e0, int deg, float* P,
-    typename MP::T* Rr, const CN& proto, const QP& quant) {
+    const Index<kMaxDeg>& ix, int r, int e0, int deg, float* P, Row Rr,
+    const CN& proto, const QP& quant) {
   constexpr int kSlots = kDeg ? kDeg : kMaxDeg;
   CN cn = proto;
   cn.begin();
@@ -230,10 +254,9 @@ __device__ __forceinline__ void update_row_one_pass(
 // dispatches on the row's degree, uniform across the block, to
 // straight-line code; the wider buckets predicate their slots; kMaxDeg = 0
 // runs two passes over a row of any degree.
-template <class CN, class QP, class MP, int kMaxDeg>
+template <class CN, class QP, class MP, int kMaxDeg, class Row>
 __device__ __forceinline__ void update_row(const Index<kMaxDeg>& ix, int r,
-                                           int e0, int deg, float* P,
-                                           typename MP::T* Rr,
+                                           int e0, int deg, float* P, Row Rr,
                                            const CN& proto,
                                            const QP& quant) {
   if constexpr (kMaxDeg == 8) {
@@ -283,16 +306,36 @@ __device__ __forceinline__ void update_row(const Index<kMaxDeg>& ix, int r,
   }
 }
 
-template <class CN, class QP, class MP, int kMaxDeg>
-__global__ void __launch_bounds__(kMaxThreads)
-bp_layered_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
-                  uint8_t* __restrict__ ok_out, int32_t* __restrict__ iu_out,
-                  Tables tab, const int32_t* __restrict__ col_off, Shape s,
-                  CN proto, QP quant, int early_stop) {
+// K2g's row of check r: slot t of the row that starts at edge e0 lies at
+// R[(e0 + t) * Z + r] in device memory, so the 32 checks of a warp read
+// and write one 128-byte line a slot (K2's R[r * r_stride + e] would put
+// r_stride words between two threads).
+template <class Msg>
+struct EdgeMajorRow {
+  Msg* first;  // R + e0 * Z + r
+  int Z;
+
+  __device__ __forceinline__ Msg& operator[](int t) const {
+    return first[t * Z];
+  }
+};
+
+// The layered decode of one block, shared by K2 and K2g.  kGmem false
+// (K2): each codeword's P and R in shared memory (Layout), R check-major.
+// kGmem true (K2g): P in shared memory, R edge-major in the codeword's
+// slice of `state` (`stride` bytes a codeword), the LLRs loaded
+// evict-first so that they do not push the resident R out of the L2.
+template <class CN, class QP, class MP, int kMaxDeg, bool kGmem>
+__device__ __forceinline__ void layered_decode(
+    const float* __restrict__ llr, uint8_t* __restrict__ bits,
+    uint8_t* __restrict__ ok_out, int32_t* __restrict__ iu_out,
+    const Tables& tab, const int32_t* __restrict__ col_off, const Shape& s,
+    const CN& proto, const QP& quant, int early_stop,
+    char* __restrict__ state, size_t stride) {
   using Msg = typename MP::T;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const Layout lay(s, kMaxDeg, sizeof(Msg));
+  const Layout lay(s, kMaxDeg, sizeof(Msg), !kGmem);
   const int Z = s.Z;
   const int n = s.nb * Z;
   const int G = s.group;
@@ -303,7 +346,12 @@ bp_layered_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
   int32_t* rows = reinterpret_cast<int32_t*>(smem + lay.table);
   float* P = reinterpret_cast<float*>(smem + lay.table + lay.rows +
                                       (present ? g : 0) * lay.per_cw);
-  Msg* R = reinterpret_cast<Msg*>(reinterpret_cast<char*>(P) + lay.p);
+  Msg* R;
+  if constexpr (kGmem) {
+    R = reinterpret_cast<Msg*>(state + (present ? b : 0) * stride);
+  } else {
+    R = reinterpret_cast<Msg*>(reinterpret_cast<char*>(P) + lay.p);
+  }
   int* flags = reinterpret_cast<int*>(smem + lay.flags);  // [2][G]
   Index<kMaxDeg> ix{reinterpret_cast<const uint16_t*>(smem),
                     reinterpret_cast<const int32_t*>(smem),
@@ -330,11 +378,25 @@ bp_layered_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
     for (int j = 0; j < s.nb; ++j) {
       const int off = col_off ? col_off[j] : 0;
       for (int z = r0; z < Z; z += s.cw_threads) {
-        P[j * Z + wrap_sub(z, off, Z)] = quant.quantize(llr_b[j * Z + z]);
+        float x;
+        if constexpr (kGmem) {
+          x = __ldcs(llr_b + j * Z + z);
+        } else {
+          x = llr_b[j * Z + z];
+        }
+        P[j * Z + wrap_sub(z, off, Z)] = quant.quantize(x);
       }
     }
-    for (int r = r0; r < Z; r += s.cw_threads) {
-      for (int e = 0; e < s.E; ++e) R[r * s.r_stride + e] = MP::store(0.0f);
+    if constexpr (kGmem) {
+      for (int e = 0; e < s.E; ++e) {
+        for (int r = r0; r < Z; r += s.cw_threads) {
+          R[e * Z + r] = MP::store(0.0f);
+        }
+      }
+    } else {
+      for (int r = r0; r < Z; r += s.cw_threads) {
+        for (int e = 0; e < s.E; ++e) R[r * s.r_stride + e] = MP::store(0.0f);
+      }
     }
     if (r0 == 0) {
       flags[g] = 0;
@@ -364,9 +426,15 @@ bp_layered_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
         const int e0 = rows[i];
         const int deg = rows[i + 1] - e0;
         for (int r = r0; r < Z; r += s.cw_threads) {
-          update_row<CN, QP, MP, kMaxDeg>(ix, r, e0, deg, P,
-                                          R + r * s.r_stride + e0, proto,
-                                          quant);
+          if constexpr (kGmem) {
+            update_row<CN, QP, MP, kMaxDeg>(
+                ix, r, e0, deg, P, EdgeMajorRow<Msg>{R + e0 * Z + r, Z},
+                proto, quant);
+          } else {
+            update_row<CN, QP, MP, kMaxDeg>(ix, r, e0, deg, P,
+                                            R + r * s.r_stride + e0, proto,
+                                            quant);
+          }
         }
       }
       __syncthreads();
@@ -409,6 +477,33 @@ bp_layered_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
   }
 }
 
+template <class CN, class QP, class MP, int kMaxDeg>
+__global__ void __launch_bounds__(kMaxThreads)
+bp_layered_kernel(const float* __restrict__ llr, uint8_t* __restrict__ bits,
+                  uint8_t* __restrict__ ok_out, int32_t* __restrict__ iu_out,
+                  Tables tab, const int32_t* __restrict__ col_off, Shape s,
+                  CN proto, QP quant, int early_stop) {
+  layered_decode<CN, QP, MP, kMaxDeg, false>(llr, bits, ok_out, iu_out, tab,
+                                             col_off, s, proto, quant,
+                                             early_stop, nullptr, 0);
+}
+
+// K2g: one codeword a block (group 1), its R at state + blockIdx.x *
+// stride, bucket 0's two-pass rows.
+template <class CN, class QP, class MP>
+__global__ void __launch_bounds__(kGmemThreads)
+bp_layered_gmem_kernel(const float* __restrict__ llr,
+                       uint8_t* __restrict__ bits,
+                       uint8_t* __restrict__ ok_out,
+                       int32_t* __restrict__ iu_out, Tables tab,
+                       const int32_t* __restrict__ col_off, Shape s,
+                       CN proto, QP quant, int early_stop,
+                       char* __restrict__ state, size_t stride) {
+  layered_decode<CN, QP, MP, 0, true>(llr, bits, ok_out, iu_out, tab,
+                                      col_off, s, proto, quant, early_stop,
+                                      state, stride);
+}
+
 struct Args {
   const float* llr;
   uint8_t* bits;
@@ -421,6 +516,8 @@ struct Args {
   float alpha, beta;
   int early_stop;
   cudaStream_t stream;
+  char* state;   // K2g's scratch (null: K2), `stride` bytes a codeword
+  size_t stride;
 };
 
 template <class CN, class QP, class MP, int kMaxDeg>
@@ -449,8 +546,32 @@ cudaError_t launch_bucket(const Args& a, const QP& quant) {
   return cudaGetLastError();
 }
 
+// K2g: one codeword a block of a.threads threads (at most kGmemThreads).
+template <class CN, class QP, class MP>
+cudaError_t launch_gmem(const Args& a, const QP& quant) {
+  const Shape& s = a.shape;
+  if (a.threads <= 0 || a.threads % 32 || a.threads > kGmemThreads ||
+      s.group != 1 || s.cw_threads < 1 || s.cw_threads > s.Z ||
+      a.threads < s.cw_threads) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = Layout(s, 0, sizeof(typename MP::T), false).total;
+  auto kernel = bp_layered_gmem_kernel<CN, QP, MP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  CN proto;
+  proto.alpha = a.alpha;
+  proto.beta = a.beta;
+  kernel<<<s.batch, a.threads, smem, a.stream>>>(
+      a.llr, a.bits, a.ok, a.iters_used, a.tab, a.col_off, s, proto, quant,
+      a.early_stop, a.state, a.stride);
+  return cudaGetLastError();
+}
+
 template <class CN, class MP, class QP = NoQuant>
 cudaError_t launch(const Args& a, QP quant = QP{}) {
+  if (a.state != nullptr) return launch_gmem<CN, QP, MP>(a, quant);
   switch (a.bucket) {
     case 8:
       return launch_bucket<CN, QP, MP, 8>(a, quant);
@@ -470,6 +591,23 @@ cudaError_t launch_algo(int algo, const Args& a) {
   if (algo == kSumProduct) return launch<SumProduct, MP>(a);
   if (algo == kSumProductFast) return launch<SumProductFast, MP>(a);
   return cudaErrorInvalidValue;
+}
+
+// The kernel of the mode: fixed point (min-sum, float32 messages only) or
+// one of the three CN updates with float32 or bf16 messages.
+cudaError_t launch_mode(int algo, const Args& a, int msg_bf16, int quantized,
+                        float step, float kmax, float lim_msg,
+                        float lim_post) {
+  if (quantized) {
+    Quant quant;
+    if (algo != kMinSum || msg_bf16 ||
+        !make_quant(step, kmax, lim_msg, lim_post, &quant)) {
+      return cudaErrorInvalidValue;
+    }
+    return launch<MinSum, F32Msg>(a, quant);
+  }
+  return msg_bf16 ? launch_algo<Bf16Msg>(algo, a)
+                  : launch_algo<F32Msg>(algo, a);
 }
 
 }  // namespace
@@ -516,17 +654,56 @@ int ldpc_bp_layered(int algo, const float* llr, uint8_t* bits, uint8_t* ok,
                Shape{Z, mb, nb, E, group, cw_threads, idx_stride, r_stride,
                      batch, iters},
                bucket, threads, alpha, beta, early_stop,
-               (cudaStream_t)stream};
-  if (quantized) {
-    Quant quant;
-    if (algo != kMinSum || msg_bf16 ||
-        !make_quant(step, kmax, lim_msg, lim_post, &quant)) {
-      return (int)cudaErrorInvalidValue;
-    }
-    return (int)launch<MinSum, F32Msg>(a, quant);
+               (cudaStream_t)stream, nullptr, 0};
+  return (int)launch_mode(algo, a, msg_bf16, quantized, step, kmax, lim_msg,
+                          lim_post);
+}
+
+// Bytes of dynamic shared memory one K2g block needs: the per-edge
+// offsets and shifts, the row pointer, one codeword's P and its two flags
+// (R lies in device memory).
+size_t ldpc_bp_layered_gmem_smem_bytes(int Z, int mb, int nb, int E) {
+  const Shape s{Z, mb, nb, E, 1, 0, 0, 0, 0, 0};
+  return Layout(s, 0, sizeof(float), false).total;
+}
+
+// K2g, the device-memory form of ldpc_bp_layered for a code whose layered
+// state exceeds one block's shared memory: the same arguments and modes
+// without p_idx, bucket (it runs bucket 0's two-pass rows), group (one
+// codeword a block), idx_stride and r_stride, and with `state` and
+// `stride`.  Launches `batch` blocks of `threads` threads (at most 512),
+// cw_threads of them a check each, with ldpc_bp_layered_gmem_smem_bytes
+// of dynamic shared memory.  `state` is scratch of batch * `stride` bytes
+// in device memory that the kernel overwrites: codeword b's R (E * Z
+// messages of float32, or bf16 with msg_bf16), edge-major (R[e * Z + r]),
+// at state + b * stride.  The caller sizes and allocates it
+// (layered_plan.layered_gmem_placement; nothing is allocated here).  A
+// null or misaligned scratch, a stride below that R or not a multiple of
+// 16, or a block shape the code does not fit is refused.  Returns as
+// ldpc_bp_layered.
+int ldpc_bp_layered_gmem(int algo, const float* llr, uint8_t* bits,
+                         uint8_t* ok, int32_t* iters_used,
+                         const int32_t* row_ptr, const int32_t* e_p,
+                         const int32_t* e_shift, const int32_t* col_off,
+                         int batch, int Z, int mb, int nb, int E,
+                         int cw_threads, int threads, int iters, float alpha,
+                         float beta, int early_stop, int msg_bf16,
+                         int quantized, float step, float kmax, float lim_msg,
+                         float lim_post, void* state, size_t stride,
+                         void* stream) {
+  const size_t need = (size_t)E * Z *
+                      (msg_bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
+  if (state == nullptr || (uintptr_t)state % 16 || stride % 16 ||
+      stride < need) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)(msg_bf16 ? launch_algo<Bf16Msg>(algo, a)
-                        : launch_algo<F32Msg>(algo, a));
+  const Args a{llr, bits, ok, iters_used,
+               Tables{nullptr, row_ptr, e_p, e_shift}, col_off,
+               Shape{Z, mb, nb, E, 1, cw_threads, 0, 0, batch, iters},
+               0, threads, alpha, beta, early_stop, (cudaStream_t)stream,
+               (char*)state, stride};
+  return (int)launch_mode(algo, a, msg_bf16, quantized, step, kmax, lim_msg,
+                          lim_post);
 }
 
 }  // extern "C"

@@ -26,7 +26,9 @@ cannot hold in one block's shared memory
 (``flood_plan.code_flood_smem_bytes`` above ``SMEM_LIMIT_BYTES``, NR BG1
 at Z = 384) runs, without a mesh, the flooding kernel's device-memory
 form (``bp_flood_gmem_kernel``, through ``build_cuda_decoder``), bit for
-bit with the shared-memory kernel.  Given a mesh (``dist/mesh.py``),
+bit with the shared-memory kernel; a layered decode above the limit (NR
+BG2 r1/5 at Z = 384) likewise runs the layered kernel's
+(``bp_layered_gmem_kernel``).  Given a mesh (``dist/mesh.py``),
 ``build_decode_fn`` sends such a float decode with impl='auto' to the
 ring decoder (``dist/ring.py``) when the code is banded (``is_banded``)
 and the ring can split it over the mesh (``fits_ring``), and to the
@@ -66,7 +68,8 @@ def build_decode_fn(code: LdpcCode, cfg, device, mesh=None, *,
     ``dist.mesh.Mesh``; a code the flooding kernel cannot hold in shared
     memory then decodes on the ring or the partitioned decoder (module
     docstring), which every rank of the mesh calls with the same LLRs;
-    without a mesh it takes the flooding kernel's device-memory form."""
+    without a mesh it takes the flooding kernel's device-memory form, and
+    a layered decode above the limit the layered kernel's."""
     device = resolve_device(device)
     impl = getattr(cfg, "impl", "auto")
     if not early_stop and (cfg.algo in ("bitflip", "wbf")

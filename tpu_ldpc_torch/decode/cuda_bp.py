@@ -18,20 +18,27 @@ above ``flood_plan.SMEM_LIMIT_BYTES``, NR BG1 at Z = 384): every mode
 above, bit for bit with the shared-memory kernel, R (and L and P where
 ``flood_plan.gmem_placement`` cannot keep them in shared memory) in a
 scratch buffer of ``GmemPlacement.stride`` bytes a codeword that each call
-allocates (``torch.empty``, inside the span ``ldpc.decode.gmem``).  The
-layered and compressed schedules raise there, naming the flooding one.
+allocates (``torch.empty``, inside the span ``ldpc.decode.gmem``).
+Layered decoders likewise take K2g (``bp_layered_gmem_kernel``) where
+``ldpc_bp_layered_smem_bytes`` exceeds the limit (NR BG2 r1/5 and BG1
+r1/2 at Z = 384): every layered mode, bit for bit with K2, P and the
+tables in shared memory and R in a scratch of
+``LayeredGmemPlacement.stride`` bytes a codeword
+(``layered_plan.layered_gmem_placement``), allocated in the same span.
+The compressed schedule raises there, naming the flooding one.
 
 Each launch adds one to ``LAUNCHES[fn.kernel]``, a launch in normalized
 coordinates also to ``LAUNCHES[fn.kernel + '_normalized']`` (shift
-normalization is a mode of the same kernel body), a launch of K1g also to
-``LAUNCHES[fn.kernel + '_gmem']``, one of K1g with L and P in shared
+normalization is a mode of the same kernel body), a launch of K1g or K2g
+also to ``LAUNCHES[fn.kernel + '_gmem']``, one of K1g with L and P in shared
 memory also to ``LAUNCHES[fn.kernel + '_gmem_smem']``, and a flooding
 launch whose rows all take bucket 0's one-gather form
 (``flood_plan.one_gather``: K1 bucket 0 or K1g, rows of at most 32 slots,
 any CN update but exact sum-product) also to
 ``LAUNCHES[fn.kernel + '_one_gather']``.  Kernel names:
 
-- ``minsum_flood`` / ``minsum_layered``: K1 / K2, min-sum;
+- ``minsum_flood`` / ``minsum_layered``: K1 / K2 (K1g / K2g above the
+  limit), min-sum;
 - ``sumproduct_flood`` / ``sumproduct_layered``: K3, exact sum-product;
 - ``spfast_flood`` / ``spfast_layered``: K4, sumproduct-fast;
 - ``minsum_quant_flood`` / ``minsum_quant_layered``: K5, fixed-point;
@@ -51,7 +58,8 @@ from tpu_ldpc_torch.codes.code import LdpcCode
 from tpu_ldpc_torch.decode.flood_plan import (
     SMEM_LIMIT_BYTES, compressed_plan, flood_plan, gmem_placement,
     one_gather)
-from tpu_ldpc_torch.decode.layered_plan import layered_plan
+from tpu_ldpc_torch.decode.layered_plan import (
+    layered_gmem_placement, layered_plan)
 from tpu_ldpc_torch.decode.normalize import coordinates
 from tpu_ldpc_torch.decode.reference import (
     build_decoder, is_bf16, quant_params)
@@ -88,8 +96,9 @@ def _all_names():
     normalized = [f"{name}_normalized" for name in names]
     flood = [f"{name}{suffix}" for name in names if "_flood" in name
              for suffix in ("_gmem", "_gmem_smem", "_one_gather")]
+    layered = [f"{name}_gmem" for name in names if "_layered" in name]
     return names + [kernel_name("minsum", "flooding", compressed=True)] \
-        + normalized + flood
+        + normalized + flood + layered
 
 
 # kernel name -> launches since the last reset_launches()
@@ -169,11 +178,12 @@ def build_cuda_decoder(
             smem = lib.ldpc_bp_layered_smem_bytes(
                 code.Z, code.mb, code.nb, E, plan.bucket, plan.group,
                 plan.idx_stride, plan.r_stride, bf16)
-        # above the limit a flooding decode keeps its state in device
-        # memory (K1g); no other schedule has such a form
+        # above the limit the flooding and layered decoders keep their
+        # state in device memory (K1g, K2g); compressed state has no such
+        # form
         gmem = smem > SMEM_LIMIT_BYTES
         shared_lp = False
-        if gmem and not flooding:
+        if gmem and compressed:
             raise ValueError(
                 f"{code.name}: {name} decoder state {smem} B exceeds the "
                 f"{SMEM_LIMIT_BYTES} B of shared memory one block may use; "
@@ -206,6 +216,20 @@ def build_cuda_decoder(
                     code.layout.max_row_deg, int(plan.one_check),
                     plan.threads, int(iters), float(alpha), float(beta),
                     int(bool(early_stop)), stream)
+            elif gmem and not flooding:
+                with span("ldpc.decode.gmem"):
+                    place = layered_gmem_placement(
+                        code.Z, code.mb, code.nb, E, 2 if bf16 else 4)
+                    state = torch.empty(batch * place.stride,
+                                        dtype=torch.uint8, device=llr.device)
+                    # K2g reads the plan's row pointer and per-edge tables,
+                    # not its p_idx
+                    err = lib.ldpc_bp_layered_gmem(
+                        _ALGO_IDS[algo], *outs, *tab_ptrs[1:], coff_ptr,
+                        batch, code.Z, code.mb, code.nb, E, place.cw_threads,
+                        place.threads, int(iters), float(alpha),
+                        float(beta), int(bool(early_stop)), int(bf16),
+                        *qargs, state.data_ptr(), place.stride, stream)
             elif gmem:
                 with span("ldpc.decode.gmem"):
                     place = gmem_placement(code.Z, code.mb, code.nb, E,
@@ -235,11 +259,11 @@ def build_cuda_decoder(
                     plan.r_stride, int(iters), float(alpha), float(beta),
                     int(bool(early_stop)), int(bf16), *qargs, stream)
         check(lib, err, f"{name} launch")
-        flood_counters = ((f"{name}_gmem",) if gmem else ()) + (
+        route_counters = ((f"{name}_gmem",) if gmem else ()) + (
             (f"{name}_gmem_smem",) if shared_lp else ()) + (
             (f"{name}_one_gather",)
             if flooding and one_gather(plan, algo, gmem) else ())
-        for counter in counters + flood_counters:
+        for counter in counters + route_counters:
             LAUNCHES[counter] += 1
         return bits, ok, iu
 

@@ -30,6 +30,10 @@ does not fit beside one codeword's state takes bucket 0: two passes over
 each row of any degree, its indices computed from the per-edge offsets
 ``e_p`` (col_e * Z) and shifts (``e_shift``) in shared memory, and
 ``Z > MAX_BLOCK_THREADS`` checks walked by fewer threads.
+
+K2g (``bp_layered_gmem_kernel``), for a code whose state exceeds one
+block's shared memory, reads the same plan's row pointer and per-edge
+tables; ``layered_gmem_placement`` gives its block and scratch.
 """
 
 from __future__ import annotations
@@ -40,11 +44,13 @@ import functools
 import numpy as np
 
 from tpu_ldpc_torch.codes.code import LdpcCode
-from tpu_ldpc_torch.decode.flood_plan import SMEM_LIMIT_BYTES, i32
+from tpu_ldpc_torch.decode.flood_plan import (
+    GMEM_STATE_ALIGN, SMEM_LIMIT_BYTES, i32)
 from tpu_ldpc_torch.spans import spanned
 
 BUCKETS = (8, 16, 32)
 MAX_BLOCK_THREADS = 256   # the kernel's __launch_bounds__
+GMEM_MAX_THREADS = 512    # K2g's __launch_bounds__
 SM_SMEM_BYTES = 233_472      # shared memory of one SM
 SM_BLOCK_RESERVED = 1_024    # set aside per resident block
 SM_MAX_THREADS = 2_048
@@ -181,3 +187,46 @@ def layered_plan(code: LdpcCode, shifts: tuple, msg_bytes: int = 4,
                         msg_bytes),
         p_idx=p_idx, row_ptr=i32(row_ptr), e_p=i32(col * Z),
         e_shift=i32(shifts))
+
+
+def gmem_smem_bytes(Z: int, mb: int, nb: int, E: int) -> int:
+    """Shared memory of one K2g block: the per-edge offsets and shifts,
+    the row pointer, one codeword's P and its two flags; R lies in device
+    memory.  The C entry point ldpc_bp_layered_gmem_smem_bytes computes
+    the same."""
+    return smem_bytes(Z, mb, nb, E, 0, 1, 0, 0, 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayeredGmemPlacement:
+    """K2g's block and scratch."""
+
+    cw_threads: int  # threads a codeword: one a check up to GMEM_MAX_THREADS
+    threads: int     # cw_threads in whole warps
+    smem: int        # bytes of shared memory a block (gmem_smem_bytes)
+    stride: int      # scratch bytes a codeword: its R
+
+
+def layered_gmem_placement(Z: int, mb: int, nb: int, E: int,
+                           msg_bytes: int = 4) -> LayeredGmemPlacement:
+    """K2g's placement, for a code whose layered state exceeds one block's
+    shared memory: one codeword a block, its P and bucket 0's per-edge
+    tables in shared memory, one thread a check up to GMEM_MAX_THREADS,
+    and its R (E * Z messages of `msg_bytes`) edge-major in a scratch of
+    ``stride`` bytes a codeword.  Bucket 0's two-pass rows, whatever the
+    code's rows: at BG2 r1/5, Z = 384 they ran 1.8x faster than the
+    16-slot one-pass rows with their index table in shared memory, and
+    the smaller block holds two codewords an SM; one thread a check ran
+    1.5x faster than 256 threads (PERF.md, K2g).  Raises where P and the
+    tables alone exceed one block's shared memory."""
+    smem = gmem_smem_bytes(Z, mb, nb, E)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"the layered decoder's P and tables alone take {smem} B, "
+            f"beyond the {SMEM_LIMIT_BYTES} B of shared memory one block "
+            f"may use")
+    cw_threads = min(Z, GMEM_MAX_THREADS)
+    raw = E * Z * msg_bytes
+    return LayeredGmemPlacement(
+        cw_threads=cw_threads, threads=-(-cw_threads // 32) * 32, smem=smem,
+        stride=raw + (-raw) % GMEM_STATE_ALIGN)
